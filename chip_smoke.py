@@ -1,0 +1,381 @@
+#!/usr/bin/env python3
+"""Chip smoke test of flooder_tpu_torch on one NVIDIA GPU (built for H100).
+
+Run from the root of a checkout:
+
+    python3 chip_smoke.py
+
+It builds the port's CUDA kernels from ``flooder_tpu_torch/csrc/`` (one
+``nvcc`` per source, started together), holds each kernel against its
+plain PyTorch version on the card, checks a small pipeline on the card
+against the same pipeline on the CPU, and drives the main path at its
+published size: a 1,000,000-point 3-D swiss-cheese cloud (seed 42),
+FPS to 1000 landmarks, the Flood complex in grid mode (30 points per
+edge) and persistence in dimensions 0-2. Every launch counter is set to 0
+just before the main path and read just after; each kernel must have run.
+
+Output: ``#`` lines with every phase's result, then a ``{"kernels": ...}``
+JSON line, the card's name and power limit, and as the last line
+``{"ok": true, "device": {...}}``. Any failure ends the script with a
+non-zero exit code and no result line; it exits 2 without CUDA.
+"""
+
+import contextlib
+import io
+import json
+import re
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+N_POINTS = 1_000_000
+N_LANDMARKS = 1000
+PPE = 30
+REPS = 3
+# H100 SXM published peaks (NVIDIA data sheet): fp32 outside the tensor
+# cores, and HBM3 bandwidth. Both assume the 700 W power limit.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+FLOOD_OPS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add, 1 min per in-ball pair
+FPS_OPS_PER_POINT = 9  # the same per visited point (and one compare)
+
+
+def log(msg):
+    print(f"# {msg}", flush=True)
+
+
+def card_line():
+    res = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    """Mean device time of ``fn`` over ``reps`` runs (CUDA events, after
+    one warm-up run)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def greedy_steps(points, idx):
+    """Per-step farthest squared distances of an FPS index sequence
+    (float64, on the points' device), the quantity two exact greedy runs
+    must share."""
+    import torch
+
+    p = points.to(torch.float64)
+    m = torch.full((p.shape[0],), float("inf"), dtype=p.dtype,
+                   device=p.device)
+    out = torch.empty(len(idx), dtype=p.dtype, device=p.device)
+    for k, i in enumerate(idx.tolist()):
+        out[k] = m[i]
+        m = torch.minimum(m, ((p - p[i]) ** 2).sum(-1))
+    return out.cpu().numpy()
+
+
+def check_same_greedy(points, a, b, start):
+    """The rule of tests/test_landmarks.py::_assert_same_greedy_selection:
+    the same start, distinct picks and the same farthest distance at every
+    step (an exact tie may pick another, equally far point). ``points`` is
+    a tensor, ``a`` and ``b`` are numpy index arrays."""
+    if not (a[0] == b[0] == start):
+        raise AssertionError(f"FPS start differs: {a[0]} {b[0]} {start}")
+    if len(set(a.tolist())) != len(a):
+        raise AssertionError("FPS kernel picked a point twice")
+    da, db = greedy_steps(points, a), greedy_steps(points, b)
+    fin = np.isfinite(da)
+    if not (np.isfinite(db) == fin).all():
+        raise AssertionError("FPS step distances differ in finiteness")
+    diff = np.abs(da[fin] - db[fin])
+    if (diff > 1e-6 * np.maximum(da[fin], db[fin])).any():
+        raise AssertionError(f"FPS greedy selection differs: {diff.max()}")
+    return float(diff.max()) if len(diff) else 0.0
+
+
+def dim3_pass_operands(engine, landmarks, ppe, tight=True):
+    """The operands flood_complex hands kernel K1 in its dimension-3 pass,
+    and the number of tetrahedra."""
+    import torch
+
+    from flooder_tpu_torch.core import _grid_host
+    from flooder_tpu_torch.ops.flood import simplex_bounding_balls
+    from flooder_tpu_torch.topology import DelaunayComplex
+
+    dev = landmarks.device
+    stree = DelaunayComplex(
+        landmarks.cpu().numpy().astype(np.float64)
+    ).create_simplex_tree()
+    tets = torch.as_tensor(stree._verts[3], device=dev).long()
+    verts = landmarks[tets]
+    centers, radii = simplex_bounding_balls(verts)
+    order = torch.as_tensor(engine.order(centers), device=dev)
+    weights = _grid_host(ppe, 3)[0]
+    operands, _, num = engine.prepare(
+        verts[order], weights, centers[order], radii[order], tight
+    )
+    return operands, num
+
+
+def flood_bound_ms(operands, inball_pairs):
+    """Least time for K1's work: the larger of its operations (9 per
+    in-ball pair of the admitted units) over the fp32 peak and its bytes
+    (every input read once, the output written once) over HBM."""
+    samples = operands[0]
+    in_bytes = sum(t.numel() * t.element_size() for t in operands)
+    out_bytes = samples.numel() // samples.shape[-1] * 4
+    t_ops = FLOOD_OPS_PER_PAIR * inball_pairs / PEAK_FP32
+    t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else (
+        "bytes")
+
+
+def main():
+    import torch
+
+    t_start = time.perf_counter()
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this script "
+              "needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+
+    import flooder_tpu_torch as ft
+    from flooder_tpu_torch.native import build
+    from flooder_tpu_torch.ops import cuda_flood, cuda_fps
+    from flooder_tpu_torch.ops.fps import farthest_point_sampling
+    from flooder_tpu_torch.utils import stagetimer
+
+    dev = torch.device("cuda")
+    card = card_line()
+    log(card)
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} device "
+        f"{torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
+
+    # ---- build -------------------------------------------------------------
+    t0 = time.perf_counter()
+    build.build_cuda(["flood", "fps"])
+    log(f"kernel build: {time.perf_counter() - t0:.2f}s wall for flood, fps "
+        f"in parallel; per source {build.BUILD_SECONDS}")
+    for name, text in build.BUILD_LOG.items():
+        regs = re.findall(r"Used (\d+) registers.*?(\d+) bytes smem", text)
+        spills = re.findall(r"(\d+) bytes spill stores", text)
+        log(f"ptxas {name}: (registers, smem bytes) per kernel {regs}; "
+            f"spill stores {spills}")
+    t0 = time.perf_counter()
+    build.load_persistence()
+    log(f"native persistence build: {time.perf_counter() - t0:.2f}s")
+
+    # ---- K2 against its plain version -------------------------------------
+    P = ft.generate_swiss_cheese_points(200_000, k=6, seed=7, device=dev)[0]
+    a = cuda_fps.cuda_farthest_point_sampling(P, 256, 0).cpu().numpy()
+    b = farthest_point_sampling(P, 256, 0).cpu().numpy()
+    fps_err_small = check_same_greedy(P, a, b, 0)
+    log(f"K2 fps 200k x 256: same greedy selection as the plain version, "
+        f"max |step d2 diff| {fps_err_small}")
+    del P
+
+    # ---- the main path's cloud, and K1 against its plain version -----------
+    X = ft.generate_swiss_cheese_points(N_POINTS, k=6, seed=42, device=dev)[0]
+    L = ft.generate_landmarks(X, N_LANDMARKS, start_idx=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    engine = cuda_flood.CudaFloodEngine(X)
+    torch.cuda.synchronize()
+    log(f"engine set-up (pad, k-d order, boxes) for {N_POINTS} witnesses: "
+        f"{1e3 * (time.perf_counter() - t0):.1f} ms (host clock)")
+    # every tetrahedron of the main path's dimension-3 pass, at full width
+    ops, n_tets = dim3_pass_operands(engine, L, PPE)
+    out_k, stats_k = cuda_flood.flood_min(*ops)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    masked_k = out_k >= cuda_flood._MASKED_D2
+    masked_p = out_p >= cuda_flood._MASKED_D2
+    if not torch.equal(masked_k, masked_p):
+        raise AssertionError("K1: no-witness (inf) entries differ")
+    flood_err = (out_k[~masked_k] - out_p[~masked_p]).abs().max().item()
+    if flood_err > 1e-6:
+        raise AssertionError(f"K1 disagrees with its plain version: {flood_err}")
+    if not torch.equal(stats_k, stats_p):
+        raise AssertionError("K1 admitted other units than its plain version")
+    n_masked = int(masked_k.sum())
+    del ops, out_k, stats_k, out_p, stats_p, masked_k, masked_p
+    log(f"K1 flood at the main path's shapes ({N_POINTS} witnesses, "
+        f"{n_tets} tetrahedra, ppe {PPE}): max |d2 diff| {flood_err} against "
+        f"the plain version, inf in the same places "
+        f"({n_masked} entries), the same admitted units; plain "
+        f"{plain_ms:.1f} ms (host clock, one run)")
+
+    # ---- a small pipeline on the card against the CPU ----------------------
+    Y = ft.generate_swiss_cheese_points(3000, seed=5, device="cpu")[0]
+    res = {}
+    for d in ("cpu", "cuda"):
+        st = ft.flood_complex(Y, 40, points_per_edge=PPE,
+                              return_simplex_tree=True, device=d)
+        res[d] = {tuple(s): f for s, f in st.get_simplices()}
+    if res["cpu"].keys() != res["cuda"].keys():
+        raise AssertionError("pipeline: the card and the CPU differ in simplices")
+    pipe_err = max(abs(res["cuda"][s] - v) for s, v in res["cpu"].items())
+    if not pipe_err <= 1e-6:
+        raise AssertionError(f"pipeline: card vs CPU filtration diff {pipe_err}")
+    log(f"pipeline 3k x 40: card == CPU on {len(res['cpu'])} simplices, "
+        f"max |diff| {pipe_err}")
+
+    # ---- the main path ------------------------------------------------------
+    def main_path():
+        stree = ft.flood_complex(X, N_LANDMARKS, points_per_edge=PPE,
+                                 return_simplex_tree=True)
+        with stagetimer.stage("persistence"):
+            stree.compute_persistence()
+            diagrams = [stree.persistence_intervals_in_dimension(i)
+                        for i in range(3)]
+        torch.cuda.synchronize()
+        return stree, diagrams
+
+    main_path()  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    times, launches = [], None
+    for rep in range(REPS):
+        if rep == 0:
+            cuda_fps.LAUNCHES = 0
+            cuda_flood.LAUNCHES = 0
+        t0 = time.perf_counter()
+        stree, diagrams = main_path()
+        times.append(time.perf_counter() - t0)
+        if rep == 0:
+            launches = {"fps": cuda_fps.LAUNCHES, "flood": cuda_flood.LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    log(f"main path launches (one run): {launches}")
+    if not (launches["fps"] > 0 and launches["flood"] > 0):
+        raise AssertionError(f"a kernel did not run on the main path: {launches}")
+
+    counts = [int(v.shape[0]) for v in stree._verts]
+    vals = np.concatenate(stree._filt)
+    if not np.isfinite(vals).all():
+        raise AssertionError("main path: non-finite filtration values")
+    if stree.make_filtration_non_decreasing():
+        raise AssertionError("main path: filtration was not monotone")
+    sizes = [len(d) for d in diagrams]
+    if counts[0] != N_LANDMARKS or len(counts) != 4 or sizes[0] != N_LANDMARKS:
+        raise AssertionError(f"main path: complex {counts}, diagrams {sizes}")
+    if int(np.isinf(diagrams[0][:, 1]).sum()) != 1:
+        raise AssertionError("main path: H0 must have one essential class")
+    median = float(np.median(times))
+    log(f"complex {counts} simplices; diagram sizes {sizes}; filtration in "
+        f"[{vals.min():.6f}, {vals.max():.6f}]")
+    log(f"main path {N_POINTS} x {N_LANDMARKS}: median {median:.4f}s reps "
+        f"{[round(t, 4) for t in times]}; peak device memory "
+        f"{peak / 2**30:.3f} GiB")
+
+    # stage split: one more run with fenced stage timing
+    buf = io.StringIO()
+    stagetimer.ENABLED = True
+    try:
+        with contextlib.redirect_stderr(buf):
+            t0 = time.perf_counter()
+            with stagetimer.stage("main-path"):
+                main_path()
+    finally:
+        stagetimer.ENABLED = False
+    split = {}
+    for name, sec in re.findall(r"^\[flooder-timing\] (.+): ([0-9.]+)s$",
+                                buf.getvalue(), flags=re.M):
+        split[name] = round(split.get(name, 0.0) + float(sec), 4)
+    split["total"] = round(time.perf_counter() - t0, 4)
+    log("stage split (s, fenced; nested stages overlap; 'main-path' is "
+        f"the whole run): {json.dumps(split)}")
+
+    # ---- kernel times at the main path's shapes -----------------------------
+    ops, _ = dim3_pass_operands(engine, L, PPE)
+    k1_ms = cuda_ms(lambda: cuda_flood.flood_min(*ops), 5)
+    _, stats_full = cuda_flood.flood_min(*ops)
+    units, inball = cuda_flood.kernel_operations(stats_full)
+    rt = ops[0].shape[2]
+    k1_bound, k1_by = flood_bound_ms(ops, inball)
+    log(f"K1 at 1M x 1k: {units} admitted (simplex, sub-chunk) units, "
+        f"{units * cuda_flood.SUB * rt} executed pairs, {inball} in-ball "
+        f"pairs; kernel {k1_ms:.3f} ms, bound {k1_bound:.3f} ms ({k1_by})")
+
+    # K2 against its plain version at the main path's shapes
+    a = cuda_fps.cuda_farthest_point_sampling(X, N_LANDMARKS, 0).cpu().numpy()
+    b = farthest_point_sampling(X, N_LANDMARKS, 0).cpu().numpy()
+    fps_err = check_same_greedy(X, a, b, 0)
+    log(f"K2 fps {N_POINTS} x {N_LANDMARKS}: same greedy selection as the "
+        f"plain version, max |step d2 diff| {fps_err}")
+
+    prep = cuda_fps._fps_prepare(X, 0)
+    n0 = cuda_fps.LAUNCHES
+    k2_ms = cuda_ms(lambda: cuda_fps.fps_kernel_run(prep, N_LANDMARKS), 5)
+    k2_launches = (cuda_fps.LAUNCHES - n0) // 6  # warm-up + 5 timed runs
+    k2_total = cuda_ms(
+        lambda: cuda_fps.cuda_farthest_point_sampling(X, N_LANDMARKS, 0), 5
+    )
+    visits = int(cuda_fps.last_visits.item())
+    k2_plain = cuda_ms(
+        lambda: farthest_point_sampling(X, N_LANDMARKS, 0), 1
+    )
+    fps_bytes = X.numel() * 4 + N_LANDMARKS * 4
+    fps_ops = FPS_OPS_PER_POINT * visits * cuda_fps.FPS_CHUNK
+    k2_bound = 1e3 * max(fps_ops / PEAK_FP32, fps_bytes / PEAK_BYTES)
+    k2_by = "operations" if fps_ops / PEAK_FP32 >= fps_bytes / PEAK_BYTES \
+        else "bytes"
+    log(f"K2 at 1M x 1k: greedy loop {k2_ms:.3f} ms for {k2_launches} "
+        f"counted CUDA launches ({1e3 * k2_ms / k2_launches:.2f} us per "
+        f"launch), with layout prep {k2_total:.3f} ms; {visits} chunk "
+        f"visits; plain {k2_plain:.1f} ms; bound {k2_bound:.4f} ms ({k2_by})")
+
+    no_lib = "none: no single PyTorch call computes this function"
+    kernels = [
+        {
+            "name": "flood_min", "route": "cuda",
+            "source": "flooder_tpu_torch/csrc/flood.cu",
+            "replaces": "flooder_tpu/ops/pallas_flood.py:333",
+            "launches": launches["flood"], "max_abs_err": flood_err,
+            "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": k1_bound,
+            "bound_by": k1_by, "library_ms": None, "library_note": no_lib,
+            "admitted_units": units, "inball_pairs": inball,
+        },
+        {
+            "name": "fps", "route": "cuda",
+            "source": "flooder_tpu_torch/csrc/fps.cu",
+            "replaces": "flooder_tpu/ops/pallas_fps.py:66",
+            "launches": launches["fps"],
+            "max_abs_err": fps_err, "ms": k2_ms,
+            "ms_with_prepare": k2_total, "plain_ms": k2_plain,
+            "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+            "library_note": no_lib, "chunk_visits": visits,
+        },
+    ]
+    log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f}s")
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({
+        "ok": True,
+        "device": {
+            "platform": "gpu",
+            "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count(),
+        },
+    }), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

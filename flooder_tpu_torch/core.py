@@ -1,0 +1,383 @@
+"""Flood complex construction: PyTorch orchestration.
+
+Counterpart of ``flooder_tpu.core`` on the same host/device split: the
+host owns the combinatorics (Delaunay over the landmarks, columnar
+SimplexTree assembly, persistence); the device owns the dense geometry
+(FPS, bounding balls, sample tiles, the masked min-distance reduction).
+On a CUDA device FPS and the reduction run through the hand-written
+kernels K2 (``csrc/fps.cu``) and K1 (``csrc/flood.cu``); on the CPU the
+same code runs their plain PyTorch versions.
+
+Not ported yet, and raising ``NotImplementedError`` when asked for: the
+dense engine (``use_pallas=False`` / ``use_triton=False``), float64 input
+(which needs the dense engine) and multi-device meshes (``mesh=``).
+"""
+
+from __future__ import annotations
+
+import itertools
+import threading
+import weakref
+from functools import lru_cache
+from numbers import Integral
+from typing import List, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from .ops.cuda_flood import CudaFloodEngine
+from .ops.cuda_fps import cuda_farthest_point_sampling
+from .ops.flood import simplex_bounding_balls
+from .topology import DelaunayComplex, SimplexTree
+from .utils.device import DeviceLike, as_tensor
+from .utils.stagetimer import fence, stage
+
+# Engine cache: repeat flood_complex calls on the SAME witness tensor skip
+# the witness ordering. The filtration does not depend on the engine's
+# state (the ordering is a performance permutation; the min-fold is
+# permutation invariant), so a hit changes nothing but wall clock. Entries
+# key on the tensor OBJECT (weakref identity: a dead referent frees the
+# engine's device memory; id() alone would be unsound under id reuse).
+# Capacity 2: engines pin the ordered witness copy in device memory.
+_ENGINE_CACHE: List[tuple] = []
+_ENGINE_CACHE_CAP = 2
+_ENGINE_CACHE_LOCK = threading.Lock()
+
+
+def _cached_engine(points, key, build):
+    with _ENGINE_CACHE_LOCK:
+        for i, (ref, k, eng) in enumerate(_ENGINE_CACHE):
+            if k == key and ref() is points:
+                _ENGINE_CACHE.append(_ENGINE_CACHE.pop(i))
+                return eng
+        # evict BEFORE building, so peak memory never holds CAP+1 engines
+        live = [e for e in _ENGINE_CACHE if e[0]() is not None]
+        _ENGINE_CACHE[:] = live[-(_ENGINE_CACHE_CAP - 1):]
+    eng = build()
+    with _ENGINE_CACHE_LOCK:
+        _ENGINE_CACHE.append((weakref.ref(points), key, eng))
+        del _ENGINE_CACHE[:-_ENGINE_CACHE_CAP]
+    return eng
+
+
+# ---------------------------------------------------------------------------
+# sampling weights
+# ---------------------------------------------------------------------------
+
+
+@lru_cache(maxsize=32)
+def _grid_host(n: int, dim: int):
+    """Barycentric grid on the unit ``dim``-simplex with ``n`` points per
+    edge, plus per-face grid-row and vertex indices (stars-and-bars:
+    C(n+dim-1, dim) points; for every vertex-subset face the rows lying on
+    it, so one top-dimension pass yields the values of all faces)."""
+    combs = np.asarray(
+        list(itertools.combinations(range(n + dim - 1), dim)), dtype=np.int64
+    ).reshape(-1, dim)
+    c = combs.shape[0]
+    padded = np.concatenate(
+        [
+            np.full((c, 1), -1, dtype=np.int64),
+            combs,
+            np.full((c, 1), n + dim - 1, dtype=np.int64),
+        ],
+        axis=1,
+    )
+    grid = np.diff(padded, axis=1) - 1  # (C, dim + 1) integer weights
+
+    face_idxs: List[np.ndarray] = []
+    vertex_idxs: List[np.ndarray] = []
+    all_axes = np.arange(dim + 1)
+    for k in range(dim + 1):
+        fk, vk = [], []
+        for comb in itertools.combinations(range(dim + 1), k):
+            comb_arr = np.asarray(comb, dtype=np.int64)
+            if len(comb) == 0:
+                mask = np.ones(len(grid), dtype=bool)
+            else:
+                mask = (grid[:, comb_arr] == 0).all(axis=1)
+            fk.append(np.flatnonzero(mask))
+            vk.append(all_axes[~np.isin(all_axes, comb_arr)])
+        face_idxs.append(np.stack(fk))
+        vertex_idxs.append(np.stack(vk))
+
+    grid_f = grid.astype(np.float64) / (n - 1)
+    return grid_f, vertex_idxs, face_idxs
+
+
+def generate_grid(
+    n: int, dim: int, device: DeviceLike = None, dtype=torch.float32
+) -> Tuple[torch.Tensor, List[torch.Tensor], List[torch.Tensor]]:
+    """Grid of points on the unit simplex.
+
+    Args:
+        n: Number of points per edge.
+        dim: Dimension of the simplex.
+        device: device of the returned tensors (default "cuda").
+        dtype: dtype of the weight tensor.
+
+    Returns:
+        (grid (C, dim+1) weights, vertex_idxs per face-codim, face_idxs per
+        face-codim).
+    """
+    grid, vertex_idxs, face_idxs = _grid_host(n, dim)
+    arr = as_tensor(grid, dtype=dtype, device=device)
+    return (
+        arr,
+        [as_tensor(v, device=arr.device) for v in vertex_idxs],
+        [as_tensor(f, device=arr.device) for f in face_idxs],
+    )
+
+
+def generate_uniform_weights(num_rand, dim, device: DeviceLike = None,
+                             dtype=torch.float32) -> torch.Tensor:
+    """``num_rand`` uniform points on the unit ``dim``-simplex.
+
+    Normalized exponentials ``-log(1-U)`` drawn from the HOST numpy global
+    RNG, as ``flooder_tpu`` draws them: ``np.random.seed(s)`` reproduces
+    the weights in both packages and on every device.
+    """
+    if dim == 0:
+        w = np.ones((num_rand, 1))
+    else:
+        u = np.random.rand(num_rand, dim + 1)
+        w = -np.log(1.0 - u)
+        w = w / w.sum(axis=1, keepdims=True)
+    return as_tensor(w, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# landmarks
+# ---------------------------------------------------------------------------
+
+
+def generate_landmarks(
+    points,
+    n_lms: int,
+    fps_h: Union[None, int] = None,
+    start_idx: Union[int, None] = None,
+    device: DeviceLike = None,
+) -> torch.Tensor:
+    """Select landmarks by exact greedy farthest-point sampling.
+
+    A CUDA float32 cloud runs kernel K2; a CPU cloud runs the plain
+    version. ``fps_h`` (the bucket height of the original flooder's
+    approximate FPS) is accepted and ignored.
+
+    Args:
+        points: (P, d) cloud (numpy array or tensor), moved to ``device``.
+        n_lms: number of landmarks (clamped to P; must be > 0).
+        fps_h: ignored.
+        start_idx: index of the first landmark; None draws one from the
+            host numpy RNG (``np.random.randint``).
+        device: device to run on (default "cuda").
+
+    Returns:
+        (n_lms, d) tensor on ``device``.
+    """
+    if n_lms <= 0:
+        raise RuntimeError(f"Number of landmarks ({n_lms}) must be positive")
+    del fps_h
+    pts = as_tensor(points, device=device)
+    n_pts = pts.shape[0]
+    n_lms = min(n_lms, n_pts)
+    if start_idx is None:
+        start_idx = int(np.random.randint(n_pts))
+    idx = cuda_farthest_point_sampling(pts, n_lms, int(start_idx))
+    return pts[idx]
+
+
+# ---------------------------------------------------------------------------
+# flood complex
+# ---------------------------------------------------------------------------
+
+
+def _min_combine_faces(faces: np.ndarray, vals: np.ndarray):
+    """Combine duplicate face rows by taking the min of their values."""
+    from .topology._keys import row_keys
+
+    faces = np.sort(np.ascontiguousarray(faces, dtype=np.int32), axis=1)
+    keys = row_keys(faces)
+    order = np.argsort(keys, kind="stable")
+    keys_s = keys[order]
+    vals_s = np.asarray(vals, dtype=np.float64)[order]
+    starts = np.flatnonzero(
+        np.concatenate([[True], keys_s[1:] != keys_s[:-1]])
+    )
+    mins = np.minimum.reduceat(vals_s, starts)
+    return faces[order[starts]], mins
+
+
+def flood_complex(
+    points,
+    landmarks: Union[int, torch.Tensor, np.ndarray],
+    max_dimension: Union[None, int] = None,
+    points_per_edge: Union[None, int] = 30,
+    num_rand: int = None,
+    batch_size: Union[None, int] = 64,
+    use_pallas: Optional[bool] = None,
+    return_simplex_tree: bool = False,
+    fps_h: Union[None, int] = None,
+    start_idx: Union[int, None] = 0,
+    use_triton: Optional[bool] = None,
+    wchunk: Optional[int] = None,
+    mesh=None,
+    landmarks_in_cloud: Optional[bool] = None,
+    device: DeviceLike = None,
+) -> Union[dict, SimplexTree]:
+    """Construct a Flood complex from witness points and landmarks.
+
+    Given N witness points and L landmarks, build the Delaunay
+    triangulation of the landmarks and give each simplex the covering
+    radius ``max over sample points s of (min over witnesses w in the
+    simplex's bounding ball of |s - w|)``, estimated on a barycentric grid
+    (or on random samples) of each simplex.
+
+    Args:
+        points: (N, d) float32 witnesses (numpy array or tensor).
+        landmarks: a landmark count (FPS-sampled from ``points``) or
+            explicit (L, d) landmark coordinates.
+        max_dimension: top simplex dimension (default: ambient dimension).
+        points_per_edge: grid resolution per edge (grid mode, default 30).
+        num_rand: if set, this many random samples per simplex instead of
+            the grid (weights from the host numpy RNG).
+        batch_size: accepted for API compatibility; the kernel's block
+            geometry is fixed.
+        use_pallas / use_triton: None or True select the hand-written
+            kernel engine; False (the dense engine) is not ported yet.
+        return_simplex_tree: return a SimplexTree instead of a dict.
+        fps_h: ignored (see generate_landmarks).
+        start_idx: FPS start index (None = random, host numpy RNG).
+        wchunk: accepted for API compatibility; the chunk length is fixed.
+        mesh: multi-device meshes are not ported yet.
+        landmarks_in_cloud: every landmark is one of ``points``, which
+            enables the exact nearest-vertex bound. Auto-True when the
+            landmarks are FPS-sampled here.
+        device: device to run on (default "cuda"); inputs are moved there.
+
+    Returns:
+        dict mapping simplex tuples to filtration values, or a SimplexTree.
+    """
+    if use_triton is not None and use_pallas is None:
+        use_pallas = use_triton
+    if use_pallas is False:
+        raise NotImplementedError(
+            "the dense flood engine (use_pallas=False) is not ported to "
+            "flooder_tpu_torch yet; it is a later slice"
+        )
+    if mesh is not None:
+        raise NotImplementedError(
+            "multi-device meshes are not ported to flooder_tpu_torch yet"
+        )
+    del batch_size, wchunk
+
+    points = as_tensor(points, device=device)
+    if points.dtype == torch.float64:
+        raise NotImplementedError(
+            "float64 needs the dense flood engine, which is not ported to "
+            "flooder_tpu_torch yet; it is a later slice"
+        )
+    if points.dtype != torch.float32:
+        raise TypeError(f"dtype ({points.dtype}) not supported")
+    if max_dimension is None:
+        max_dimension = points.shape[1]
+    if isinstance(landmarks, Integral):
+        with stage("fps"):
+            landmarks = generate_landmarks(
+                points,
+                min(int(landmarks), points.shape[0]),
+                fps_h,
+                start_idx=start_idx,
+                device=points.device,
+            )
+            fence(landmarks)
+        if landmarks_in_cloud is None:
+            landmarks_in_cloud = True
+    else:
+        landmarks = as_tensor(landmarks, device=points.device)
+    tight = bool(landmarks_in_cloud)
+    if landmarks.dtype != points.dtype:
+        raise RuntimeError(
+            f"landmarks.dtype ({landmarks.dtype}) != points.dtype "
+            f"({points.dtype})"
+        )
+    dev = points.device
+
+    with stage("landmarks-d2h"):
+        lms_host = landmarks.detach().cpu().numpy().astype(np.float64)
+
+    # Build the engine before the host Delaunay: its witness ordering is
+    # queued on the device and runs while the host triangulates.
+    with stage("engine-init"):
+        engine = _cached_engine(
+            points, ("cuda-flood",), lambda: CudaFloodEngine(points)
+        )
+
+    with stage("delaunay"):
+        stree = DelaunayComplex(lms_host).create_simplex_tree()
+        levels = stree._verts  # columnar access within the package
+
+    for d in range(max_dimension + 1):
+        # Grid mode derives face filtrations from the top-dimension pass.
+        if num_rand is None and d < max_dimension:
+            continue
+        if d >= len(levels):
+            continue
+        d_simplices = levels[d]
+        num_simplices = d_simplices.shape[0]
+        if num_simplices == 0:
+            continue
+
+        with stage(f"dim{d}:balls+order"):
+            sim_verts = landmarks[torch.as_tensor(d_simplices, device=dev)
+                                  .long()]  # (S, d+1, dim)
+            centers, radii = simplex_bounding_balls(sim_verts)
+            order_host = engine.order(centers)
+            order = torch.as_tensor(order_host, device=dev)
+            sim_verts = sim_verts[order]
+            centers = centers[order]
+            radii = radii[order]
+            simplices_sorted = d_simplices[order_host]
+
+        if num_rand is None:
+            weights, vertex_idxs, face_idxs = _grid_host(
+                points_per_edge, max_dimension
+            )
+            with stage(f"dim{d}:distances"):
+                fvals_all = [
+                    f.cpu().numpy()
+                    for f in engine.min_distances_facemax(
+                        sim_verts, weights, centers, radii, tight=tight,
+                        face_tables=face_idxs,
+                    )
+                ]
+            with stage(f"dim{d}:assembly"):
+                # A face shared by several top simplices takes the min of
+                # their ball-restricted estimates (order independent).
+                for codim, vertex_idx in enumerate(vertex_idxs):
+                    faces = simplices_sorted[:, vertex_idx]
+                    face_dim = max_dimension - codim
+                    uniq_faces, min_vals = _min_combine_faces(
+                        faces.reshape(-1, face_dim + 1),
+                        fvals_all[codim].reshape(-1),
+                    )
+                    stree.assign_filtrations(face_dim, uniq_faces, min_vals)
+        else:
+            weights = generate_uniform_weights(num_rand, d, device="cpu")
+            with stage(f"dim{d}:distances"):
+                vals_host = engine.min_distances_facemax(
+                    sim_verts, weights, centers, radii, tight=tight,
+                    face_tables=None,
+                ).cpu().numpy()
+            with stage(f"dim{d}:assembly"):
+                stree.assign_filtrations(d, simplices_sorted, vals_host)
+
+    with stage("monotonicity"):
+        stree.make_filtration_non_decreasing()
+
+    if return_simplex_tree:
+        return stree
+    with stage("dict-out"):
+        return dict(
+            (tuple(simplex), filtr) for simplex, filtr in stree.get_simplices()
+        )

@@ -1,0 +1,164 @@
+"""Build and load the port's native code.
+
+Two kinds of source, both in this package and nowhere else:
+
+- ``native/src/persistence.cpp``: the Z/2 boundary reduction, compiled
+  with the host C++ compiler into a plain shared library.
+- ``csrc/<name>.cu``: the hand-written Hopper kernels, compiled with
+  ``nvcc`` for ``sm_90a`` into shared libraries with a plain C interface
+  and loaded with ``ctypes`` (no PyTorch headers, so a build takes
+  seconds).
+
+Everything is built at first use into ``build/flooder_tpu_torch/`` beside
+the package (git-ignored), never at import. A failed build raises with the
+compiler's output: there is no fallback. Libraries are written to a
+temporary name and renamed into place, so processes that build at the same
+time never load a half-written file.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+BUILD_DIR = PKG_DIR.parent / "build" / "flooder_tpu_torch"
+PERSISTENCE_SRC = PKG_DIR / "native" / "src" / "persistence.cpp"
+PERSISTENCE_LIB = BUILD_DIR / "_persistence.so"
+CUDA_SRC_DIR = PKG_DIR / "csrc"
+
+# Kernels are built for Hopper only. -fmad=false keeps every a*b+c as a
+# rounded multiply and a rounded add, the same arithmetic as the plain
+# PyTorch versions, so the two agree bit for bit.
+NVCC_FLAGS = [
+    "-gencode=arch=compute_90a,code=sm_90a",
+    "-std=c++17",
+    "-O3",
+    "-fmad=false",
+    "-Xptxas=-v",
+    "-shared",
+    "-Xcompiler",
+    "-fPIC",
+]
+
+_lock = threading.Lock()
+_loaded: Dict[str, ctypes.CDLL] = {}
+BUILD_LOG: Dict[str, str] = {}  # library name -> compiler output
+BUILD_SECONDS: Dict[str, float] = {}
+
+
+def _stale(lib: Path, src: Path) -> bool:
+    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+
+
+def _tmp_name(lib: Path) -> Path:
+    return lib.with_name(f".{lib.name}.{os.getpid()}.tmp")
+
+
+def _finish(name: str, proc: subprocess.Popen, tmp: Path, lib: Path, t0):
+    out, _ = proc.communicate()
+    BUILD_LOG[name] = out
+    BUILD_SECONDS[name] = time.perf_counter() - t0
+    if proc.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(
+            f"building {name} failed (exit {proc.returncode}):\n"
+            f"{' '.join(proc.args)}\n{out}"
+        )
+    os.replace(tmp, lib)
+
+
+def _start(cmd, tmp: Path):
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    return subprocess.Popen(
+        cmd + ["-o", str(tmp)],
+        stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT,
+        text=True,
+    )
+
+
+def _nvcc() -> str:
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    exe = shutil.which("nvcc")
+    if exe is None and CUDA_HOME:
+        exe = os.path.join(CUDA_HOME, "bin", "nvcc")
+    if exe is None or not os.path.exists(exe):
+        raise RuntimeError(
+            "nvcc not found (neither on PATH nor under CUDA_HOME); the "
+            "CUDA kernels cannot be built"
+        )
+    return exe
+
+
+def cuda_source(name: str) -> Path:
+    return CUDA_SRC_DIR / f"{name}.cu"
+
+
+def cuda_library(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def build_cuda(names: Iterable[str]) -> None:
+    """Compile the named ``csrc/*.cu`` kernels that are missing or stale,
+    one ``nvcc`` process each, all started together."""
+    procs = []
+    for name in names:
+        src, lib = cuda_source(name), cuda_library(name)
+        if not _stale(lib, src):
+            continue
+        tmp = _tmp_name(lib)
+        cmd = [_nvcc(), *NVCC_FLAGS, str(src)]
+        procs.append((name, _start(cmd, tmp), tmp, lib, time.perf_counter()))
+    errors = []
+    for args in procs:
+        try:
+            _finish(*args)
+        except RuntimeError as e:
+            errors.append(str(e))
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def load_cuda(name: str) -> ctypes.CDLL:
+    """Load (building first if needed) the kernel library ``lib<name>.so``."""
+    with _lock:
+        if name not in _loaded:
+            build_cuda([name])
+            _loaded[name] = ctypes.CDLL(str(cuda_library(name)))
+        return _loaded[name]
+
+
+def load_persistence() -> ctypes.CDLL:
+    """Load (building first if needed) the native persistence reduction."""
+    with _lock:
+        lib = _loaded.get("persistence")
+        if lib is not None:
+            return lib
+        if _stale(PERSISTENCE_LIB, PERSISTENCE_SRC):
+            tmp = _tmp_name(PERSISTENCE_LIB)
+            cxx = os.environ.get("CXX", "g++")
+            cmd = [cxx, "-O3", "-std=c++17", "-shared", "-fPIC",
+                   str(PERSISTENCE_SRC)]
+            _finish("persistence", _start(cmd, tmp), tmp, PERSISTENCE_LIB,
+                    time.perf_counter())
+        lib = ctypes.CDLL(str(PERSISTENCE_LIB))
+        lib.flood_reduce.restype = ctypes.c_int64
+        lib.flood_reduce.argtypes = [
+            ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int8),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+            ctypes.POINTER(ctypes.c_int64),
+        ]
+        _loaded["persistence"] = lib
+        return lib

@@ -9,7 +9,7 @@ setup(
     name="flooder-tpu",
     version="1.0.1",
     description="TPU-native Flood complex PH (JAX/Pallas)",
-    packages=find_packages(include=["flooder_tpu", "flooder_tpu.*"]),
+    packages=find_packages(include=["flooder_tpu", "flooder_tpu.*", "flooder_tpu_torch", "flooder_tpu_torch.*"]),
     python_requires=">=3.10",
     entry_points={
         "console_scripts": [

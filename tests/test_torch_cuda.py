@@ -1,0 +1,130 @@
+"""Kernels of flooder_tpu_torch on the card against their plain versions.
+
+These tests need an NVIDIA GPU with ``nvcc``; elsewhere they skip from
+inside the ``cuda_device`` fixture. They import nothing of JAX, so on a
+machine without it run them as
+
+    python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import flooder_tpu_torch as ft
+from flooder_tpu_torch.ops import cuda_flood, cuda_fps
+from flooder_tpu_torch.ops.fps import farthest_point_sampling
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    return torch.device("cuda")
+
+
+def assert_same_greedy_selection(pts, a, b, start):
+    """Both index sequences realize the same exact greedy FPS run: the same
+    start and the same farthest distance at every step (a tie may pick a
+    different, equally far point)."""
+    p = np.asarray(pts, dtype=np.float64)
+    assert a[0] == b[0] == start
+    assert len(set(a.tolist())) == len(a)
+    m_a = np.full(len(p), np.inf)
+    m_b = np.full(len(p), np.inf)
+    for ia, ib in zip(a, b):
+        da, db = m_a[ia], m_b[ib]
+        assert da == db or abs(da - db) < 1e-6 * max(da, db)
+        m_a = np.minimum(m_a, ((p - p[ia]) ** 2).sum(-1))
+        m_b = np.minimum(m_b, ((p - p[ib]) ** 2).sum(-1))
+
+
+@pytest.mark.parametrize("n,n_lms,dim", [(9000, 128, 3), (20000, 64, 2)])
+def test_fps_kernel_matches_plain(cuda_device, n, n_lms, dim):
+    rng = np.random.default_rng(n)
+    x = rng.random((n, dim)).astype(np.float32)
+    pts = torch.from_numpy(x).to(cuda_device)
+    before = cuda_fps.LAUNCHES
+    got = cuda_fps.cuda_farthest_point_sampling(pts, n_lms, 7)
+    assert cuda_fps.LAUNCHES == before + 2 * (n_lms - 1)  # update + select
+    want = farthest_point_sampling(pts, n_lms, 7)
+    assert_same_greedy_selection(x, got.cpu().numpy(), want.cpu().numpy(), 7)
+
+
+def test_fps_single_sample_launches_nothing(cuda_device):
+    pts = torch.rand(1000, 3, device=cuda_device)
+    before = cuda_fps.LAUNCHES
+    got = cuda_fps.cuda_farthest_point_sampling(pts, 1, 5)
+    assert got.tolist() == [5]
+    assert cuda_fps.LAUNCHES == before
+
+
+def _dim3_operands(device, n=20000, n_lms=100, tight=True, num_rand=None):
+    X = ft.generate_swiss_cheese_points(n, seed=3, device=device)[0]
+    L = ft.generate_landmarks(X, n_lms, start_idx=0, device=device)
+    eng = cuda_flood.CudaFloodEngine(X)
+    stree = ft.topology.DelaunayComplex(
+        L.cpu().numpy().astype(np.float64)
+    ).create_simplex_tree()
+    tets = torch.as_tensor(stree._verts[3], device=device).long()
+    verts = L[tets]
+    centers, radii = ft.ops.flood.simplex_bounding_balls(verts)
+    order = torch.as_tensor(eng.order(centers), device=device)
+    if num_rand is None:
+        from flooder_tpu_torch.core import _grid_host
+
+        weights = _grid_host(10, 3)[0]
+    else:
+        np.random.seed(0)
+        weights = ft.generate_uniform_weights(num_rand, 3, device="cpu")
+    return eng.prepare(verts[order], weights, centers[order], radii[order],
+                       tight)[0]
+
+
+@pytest.mark.parametrize("tight,num_rand", [(True, None), (False, 300)])
+def test_flood_kernel_matches_plain(cuda_device, tight, num_rand):
+    ops = _dim3_operands(cuda_device, tight=tight, num_rand=num_rand)
+    before = cuda_flood.LAUNCHES
+    out_k, stats_k = cuda_flood.flood_min(*ops)
+    torch.cuda.synchronize()
+    assert cuda_flood.LAUNCHES == before + 1
+    out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
+    masked_k = out_k >= cuda_flood._MASKED_D2
+    masked_p = out_p >= cuda_flood._MASKED_D2
+    assert torch.equal(masked_k, masked_p)
+    assert (out_k[~masked_k] - out_p[~masked_p]).abs().max().item() <= 1e-6
+    assert torch.equal(stats_k, stats_p)
+    assert stats_k[:, 0].sum().item() > 0
+
+
+def test_flood_kernel_rejects_bad_operands(cuda_device):
+    ops = list(_dim3_operands(cuda_device, n=5000, n_lms=30))
+    with pytest.raises(TypeError):
+        cuda_flood.flood_min(*([ops[0].double()] + ops[1:]))
+    with pytest.raises(TypeError):
+        cuda_flood.flood_min(*(ops[:-1] + [ops[-1].long()]))
+
+
+def test_pipeline_cuda_matches_cpu(cuda_device):
+    X = ft.generate_swiss_cheese_points(3000, seed=5, device="cpu")[0]
+    out = {}
+    for dev in ("cpu", "cuda"):
+        st = ft.flood_complex(X, 40, points_per_edge=12,
+                              return_simplex_tree=True, device=dev)
+        out[dev] = {tuple(s): f for s, f in st.get_simplices()}
+    assert out["cpu"].keys() == out["cuda"].keys()
+    for s, v in out["cpu"].items():
+        assert abs(out["cuda"][s] - v) <= 1e-6, s
+
+
+def test_main_path_goes_through_both_kernels(cuda_device):
+    X = ft.generate_swiss_cheese_points(30000, seed=6, device=cuda_device)[0]
+    f0, k0 = cuda_fps.LAUNCHES, cuda_flood.LAUNCHES
+    st = ft.flood_complex(X, 200, return_simplex_tree=True)
+    st.compute_persistence()
+    assert cuda_fps.LAUNCHES == f0 + 2 * (200 - 1)
+    assert cuda_flood.LAUNCHES == k0 + 1
+    vals = np.concatenate(st._filt)
+    assert np.isfinite(vals).all()

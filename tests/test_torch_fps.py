@@ -1,0 +1,76 @@
+"""The port's FPS (the plain version of kernel K2) against flooder_tpu's
+XLA loop and its Pallas kernel in interpret mode, under the greedy-
+selection rule of tests/test_landmarks.py; the kernel's layout
+preparation against the TPU kernel's."""
+
+import numpy as np
+import pytest
+import torch
+
+import flooder_tpu as fj
+import flooder_tpu_torch as ft
+from flooder_tpu.ops.fps import farthest_point_sampling as fps_xla
+from flooder_tpu.ops.pallas_fps import pallas_farthest_point_sampling
+from flooder_tpu_torch.ops import cuda_fps
+from flooder_tpu_torch.ops.fps import farthest_point_sampling as fps_torch
+from test_landmarks import _assert_same_greedy_selection
+
+
+@pytest.mark.parametrize("n,n_lms", [(500, 16), (9000, 128)])
+def test_plain_fps_matches_xla_and_pallas(n, n_lms):
+    pts = np.asarray(fj.generate_noisy_torus_points_3d(n, seed=4))
+    got = fps_torch(torch.tensor(pts), n_lms, 7).numpy()
+    want = np.asarray(fps_xla(pts, n_lms, 7))
+    _assert_same_greedy_selection(pts, got, want, 7)
+    kern = np.asarray(pallas_farthest_point_sampling(pts, n_lms, 7,
+                                                     interpret=True))
+    _assert_same_greedy_selection(pts, got, kern, 7)
+
+
+def test_wrapper_uses_plain_version_on_cpu():
+    pts = torch.tensor(
+        np.asarray(fj.generate_noisy_torus_points_3d(700, seed=2))
+    )
+    before = cuda_fps.LAUNCHES
+    got = cuda_fps.cuda_farthest_point_sampling(pts, 30, 3)
+    assert cuda_fps.LAUNCHES == before  # no kernel on the CPU
+    assert torch.equal(got, fps_torch(pts, 30, 3))
+
+
+@pytest.mark.parametrize("n,dim", [(9000, 3), (5000, 2), (300, 1)])
+def test_fps_prepare_matches_tpu_layout(n, dim):
+    from flooder_tpu.ops.pallas_fps import FPS_CHUNK, _fps_prepare
+
+    rng = np.random.default_rng(n)
+    x = rng.random((n, dim)).astype(np.float32)
+    pts_t, lo, hi, sstart, order = cuda_fps._fps_prepare(
+        torch.from_numpy(x), 11
+    )
+    assert cuda_fps.FPS_CHUNK == FPS_CHUNK
+    j_pts, j_lo, j_hi, j_start, j_order = _fps_prepare(
+        x, np.int32(11), chunk=FPS_CHUNK, dim_pad=8
+    )
+    np.testing.assert_array_equal(order.numpy(), np.asarray(j_order))
+    assert int(sstart) == int(j_start)
+    np.testing.assert_array_equal(pts_t.numpy(), np.asarray(j_pts)[:dim])
+    np.testing.assert_array_equal(lo.numpy(), np.asarray(j_lo)[:dim])
+    np.testing.assert_array_equal(hi.numpy(), np.asarray(j_hi)[:dim])
+
+
+@pytest.mark.parametrize("start_idx", [0, 17, None])
+def test_generate_landmarks_same_as_flooder_tpu(start_idx):
+    X = np.asarray(fj.generate_noisy_torus_points_3d(1500, seed=8))
+    np.random.seed(3)
+    want = np.asarray(fj.generate_landmarks(X, 60, start_idx=start_idx))
+    np.random.seed(3)
+    got = ft.generate_landmarks(X, 60, start_idx=start_idx, device="cpu")
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+def test_generate_landmarks_clamps_and_validates():
+    X = np.asarray(fj.generate_noisy_torus_points_3d(50, seed=3))
+    assert ft.generate_landmarks(X, 100, start_idx=0,
+                                 device="cpu").shape == (50, 3)
+    with pytest.raises(RuntimeError):
+        ft.generate_landmarks(X, 0, device="cpu")
