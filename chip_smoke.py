@@ -14,6 +14,14 @@ FPS to 1000 landmarks, the Flood complex in grid mode (30 points per
 edge) and persistence in dimensions 0-2. Every launch counter is set to 0
 just before the main path and read just after; each kernel must have run.
 
+The kernel-stats path runs kernel K3 (``csrc/flood_stats.cu``): K3 is held
+against its plain version on the tool's default 100k x 300 scene; on the
+main path's dimension-3 operands it is held against K1 (the same output,
+and its computed tiles equal K1's admitted units) and against its plain
+version on 64 whole blocks (all witnesses, exact counters); and the tool
+(``python -m flooder_tpu_torch.tools.kernel_stats``) is driven at 1M x 1k
+with the launch counters set to 0 just before it and read just after.
+
 Output: ``#`` lines with every phase's result, then a ``{"kernels": ...}``
 JSON line, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure ends the script with a
@@ -40,6 +48,10 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 FLOOD_OPS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add, 1 min per in-ball pair
 FPS_OPS_PER_POINT = 9  # the same per visited point (and one compare)
+K3_PLAIN_POINTS = 100_000  # the kernel-stats tool's default scene
+K3_PLAIN_LANDMARKS = 300
+K3_LONGEST_BLOCKS = 16  # K3's plain check at 1M x 1k: whole blocks
+K3_SPREAD_BLOCKS = 48
 
 
 def log(msg):
@@ -131,6 +143,20 @@ def dim3_pass_operands(engine, landmarks, ppe, tight=True):
     return operands, num
 
 
+def flood_d2_diff(out_a, out_b, what):
+    """Max |d2 diff| of two flood outputs, which must mark no-witness
+    entries (>= 1e30) in the same places."""
+    from flooder_tpu_torch.ops.cuda_flood import _MASKED_D2
+
+    masked = out_a >= _MASKED_D2
+    if not (masked == (out_b >= _MASKED_D2)).all():
+        raise AssertionError(f"{what}: no-witness (inf) entries differ")
+    err = (out_a[~masked] - out_b[~masked]).abs().max().item()
+    if err > 1e-6:
+        raise AssertionError(f"{what}: max |d2 diff| {err} > 1e-6")
+    return err
+
+
 def flood_bound_ms(operands, inball_pairs):
     """Least time for K1's work: the larger of its operations (9 per
     in-ball pair of the admitted units) over the fp32 peak and its bytes
@@ -156,8 +182,10 @@ def main():
 
     import flooder_tpu_torch as ft
     from flooder_tpu_torch.native import build
-    from flooder_tpu_torch.ops import cuda_flood, cuda_fps
+    from flooder_tpu_torch.ops import cuda_flood, cuda_flood_stats, cuda_fps
     from flooder_tpu_torch.ops.fps import farthest_point_sampling
+    from flooder_tpu_torch.tools import kernel_stats
+    from flooder_tpu_torch.tools.scene import block_slice, build_scene
     from flooder_tpu_torch.utils import stagetimer
 
     dev = torch.device("cuda")
@@ -168,9 +196,9 @@ def main():
 
     # ---- build -------------------------------------------------------------
     t0 = time.perf_counter()
-    build.build_cuda(["flood", "fps"])
-    log(f"kernel build: {time.perf_counter() - t0:.2f}s wall for flood, fps "
-        f"in parallel; per source {build.BUILD_SECONDS}")
+    build.build_cuda(["flood", "fps", "flood_stats"])
+    log(f"kernel build: {time.perf_counter() - t0:.2f}s wall for flood, fps, "
+        f"flood_stats in parallel; per source {build.BUILD_SECONDS}")
     for name, text in build.BUILD_LOG.items():
         regs = re.findall(r"Used (\d+) registers.*?(\d+) bytes smem", text)
         spills = re.findall(r"(\d+) bytes spill stores", text)
@@ -206,17 +234,11 @@ def main():
     out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
-    masked_k = out_k >= cuda_flood._MASKED_D2
-    masked_p = out_p >= cuda_flood._MASKED_D2
-    if not torch.equal(masked_k, masked_p):
-        raise AssertionError("K1: no-witness (inf) entries differ")
-    flood_err = (out_k[~masked_k] - out_p[~masked_p]).abs().max().item()
-    if flood_err > 1e-6:
-        raise AssertionError(f"K1 disagrees with its plain version: {flood_err}")
+    flood_err = flood_d2_diff(out_k, out_p, "K1 against its plain version")
     if not torch.equal(stats_k, stats_p):
         raise AssertionError("K1 admitted other units than its plain version")
-    n_masked = int(masked_k.sum())
-    del ops, out_k, stats_k, out_p, stats_p, masked_k, masked_p
+    n_masked = int((out_k >= cuda_flood._MASKED_D2).sum())
+    del ops, out_k, stats_k, out_p, stats_p
     log(f"K1 flood at the main path's shapes ({N_POINTS} witnesses, "
         f"{n_tets} tetrahedra, ppe {PPE}): max |d2 diff| {flood_err} against "
         f"the plain version, inf in the same places "
@@ -305,11 +327,11 @@ def main():
     # ---- kernel times at the main path's shapes -----------------------------
     ops, _ = dim3_pass_operands(engine, L, PPE)
     k1_ms = cuda_ms(lambda: cuda_flood.flood_min(*ops), 5)
-    _, stats_full = cuda_flood.flood_min(*ops)
+    out_k1, stats_full = cuda_flood.flood_min(*ops)
     units, inball = cuda_flood.kernel_operations(stats_full)
     rt = ops[0].shape[2]
     k1_bound, k1_by = flood_bound_ms(ops, inball)
-    log(f"K1 at 1M x 1k: {units} admitted (simplex, sub-chunk) units, "
+    log(f"K1 at 1M x 1k: {units} admitted (simplex, tile, sub-chunk) units, "
         f"{units * cuda_flood.SUB * rt} executed pairs, {inball} in-ball "
         f"pairs; kernel {k1_ms:.3f} ms, bound {k1_bound:.3f} ms ({k1_by})")
 
@@ -341,6 +363,106 @@ def main():
         f"launch), with layout prep {k2_total:.3f} ms; {visits} chunk "
         f"visits; plain {k2_plain:.1f} ms; bound {k2_bound:.4f} ms ({k2_by})")
 
+    # ---- K3 against its plain version on the tool's default scene ---------
+    small = build_scene(K3_PLAIN_POINTS, K3_PLAIN_LANDMARKS)
+    out_k, stats_k = cuda_flood_stats.flood_min_stats(*small.operands)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, stats_p = cuda_flood_stats.flood_stats_reference(*small.operands)
+    torch.cuda.synchronize()
+    k3_plain = 1e3 * (time.perf_counter() - t0)
+    k3_err = flood_d2_diff(out_k, out_p, "K3 against its plain version")
+    if not torch.equal(stats_k, stats_p):
+        raise AssertionError("K3 counters differ from its plain version")
+    k3_small_ms = cuda_ms(
+        lambda: cuda_flood_stats.flood_min_stats(*small.operands), 5
+    )
+    log(f"K3 flood_stats {K3_PLAIN_POINTS} x {K3_PLAIN_LANDMARKS} "
+        f"({small.num_simplices} simplices, "
+        f"{small.operands[-1].numel()} pairs): max |d2 diff| {k3_err} "
+        f"against the plain version, inf in the same places, counters "
+        f"equal (column sums {stats_k.sum(0).tolist()}); kernel "
+        f"{k3_small_ms:.3f} ms, plain {k3_plain:.1f} ms (host clock, one "
+        f"run)")
+    del small, out_k, stats_k, out_p, stats_p
+
+    # ---- K3 at the main path's shapes, against K1 ---------------------------
+    out_k3, stats_k3 = cuda_flood_stats.flood_min_stats(*ops)
+    k3_vs_k1 = flood_d2_diff(out_k3, out_k1, "K3 against K1")
+    col = stats_k3.sum(0).tolist()
+    k3_tiles = col[cuda_flood_stats.COL_TILES]
+    k3_subchunks = col[cuda_flood_stats.COL_SUBCHUNKS]
+    k3_visited = int(stats_k3[:: cuda_flood.BS, 0].sum())
+    if k3_tiles != units:
+        raise AssertionError(f"K3 computed {k3_tiles} tiles, K1 admitted "
+                             f"{units} units")
+    if k3_visited != ops[-1].numel():
+        raise AssertionError("K3 visited other pairs than the work-list's")
+    # ... and against its plain version on whole blocks of these operands:
+    # the blocks with the longest pair lists and blocks spread over the rest
+    lens = (ops[-2][1:] - ops[-2][:-1]).cpu().numpy()
+    by_len = np.argsort(-lens, kind="stable")
+    rest = np.sort(by_len[K3_LONGEST_BLOCKS:])
+    blocks = np.concatenate([
+        by_len[:K3_LONGEST_BLOCKS],
+        rest[np.linspace(0, len(rest) - 1, K3_SPREAD_BLOCKS).astype(int)],
+    ])
+    sliced, rows = block_slice(ops, blocks.tolist())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_p, stats_p = cuda_flood_stats.flood_stats_reference(*sliced)
+    torch.cuda.synchronize()
+    k3_slice_plain = 1e3 * (time.perf_counter() - t0)
+    out_s, stats_s = cuda_flood_stats.flood_min_stats(*sliced)
+    k3_err_1m = flood_d2_diff(out_k3[rows], out_p,
+                              "K3 against its plain version at 1M x 1k")
+    flood_d2_diff(out_s, out_p, "K3 on the block slice against plain")
+    if not (torch.equal(stats_k3[rows], stats_p)
+            and torch.equal(stats_s, stats_p)):
+        raise AssertionError("K3 counters at 1M x 1k differ from its plain "
+                             "version")
+    slice_pairs = sliced[-1].numel()
+    log(f"K3 at 1M x 1k against its plain version on {len(blocks)} whole "
+        f"blocks ({K3_LONGEST_BLOCKS} with the longest pair lists, "
+        f"{slice_pairs} of {ops[-1].numel()} pairs, all {ops[1].shape[0]} "
+        f"witnesses): max |d2 diff| {k3_err_1m}, inf in the same places, "
+        f"every counter equal (column sums {stats_p.sum(0).tolist()}), in "
+        f"the full run and on the slice; plain {k3_slice_plain:.1f} ms "
+        f"(host clock, one run)")
+    del sliced, rows, out_p, stats_p, out_s, stats_s
+    k3_ms = cuda_ms(lambda: cuda_flood_stats.flood_min_stats(*ops), 5)
+    k3_bound, k3_by = flood_bound_ms(ops, inball)
+    log(f"K3 at 1M x 1k: max |d2 diff| {k3_vs_k1} against K1's output; "
+        f"{k3_tiles} computed tiles == K1's {units} admitted units; "
+        f"{k3_subchunks} admitted (simplex, sub-chunk) units; {k3_visited} "
+        f"visited pairs == the work-list's; kernel {k3_ms:.3f} ms (K1 "
+        f"{k1_ms:.3f} ms), bound {k3_bound:.3f} ms ({k3_by})")
+    del out_k1, out_k3, stats_k3
+
+    # ---- the kernel-stats tool at 1M x 1k -----------------------------------
+    cuda_fps.LAUNCHES = cuda_flood.LAUNCHES = cuda_flood_stats.LAUNCHES = 0
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = kernel_stats.main(["--points", str(N_POINTS), "--landmarks",
+                                str(N_LANDMARKS), "--overhead"])
+    tool_s = time.perf_counter() - t0
+    tool_launches = {"fps": cuda_fps.LAUNCHES, "flood": cuda_flood.LAUNCHES,
+                     "flood_stats": cuda_flood_stats.LAUNCHES}
+    rec = json.loads(buf.getvalue().strip().splitlines()[-1])
+    log(f"kernel_stats tool record: {json.dumps(rec)}")
+    log(f"kernel_stats tool launches (one run): {tool_launches}; "
+        f"{tool_s:.2f}s (host clock, scene build included)")
+    if rc != 0 or rec["parity_vs_production"] is not True:
+        raise AssertionError("kernel_stats tool: no parity with production")
+    if tool_launches["flood_stats"] <= 0:
+        raise AssertionError("kernel_stats tool: K3 did not run")
+    # the tool's scene is the main path's dimension-3 pass
+    if (rec["computed_tiles"], rec["worklist_pairs"]) != (k3_tiles,
+                                                          k3_visited):
+        raise AssertionError("kernel_stats tool: other work than the main "
+                             "path's dimension-3 pass")
+
     no_lib = "none: no single PyTorch call computes this function"
     kernels = [
         {
@@ -361,6 +483,23 @@ def main():
             "ms_with_prepare": k2_total, "plain_ms": k2_plain,
             "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
             "library_note": no_lib, "chunk_visits": visits,
+        },
+        {
+            "name": "flood_min_stats", "route": "cuda",
+            "source": "flooder_tpu_torch/csrc/flood_stats.cu",
+            "replaces": "tools/kernel_stats.py:55",
+            "launches": tool_launches["flood_stats"],
+            "max_abs_err": k3_err_1m, "max_abs_err_vs_k1": k3_vs_k1,
+            "max_abs_err_at_plain_shape": k3_err, "ms": k3_ms,
+            "plain_ms": k3_plain, "bound_ms": k3_bound, "bound_by": k3_by,
+            "library_ms": None, "library_note": no_lib,
+            "plain_shape": f"{K3_PLAIN_POINTS} x {K3_PLAIN_LANDMARKS}",
+            "ms_at_plain_shape": k3_small_ms,
+            "plain_check_blocks": len(blocks),
+            "plain_check_pairs": slice_pairs,
+            "plain_ms_on_blocks": k3_slice_plain,
+            "computed_tiles": k3_tiles, "admitted_subchunks": k3_subchunks,
+            "visited_pairs": k3_visited,
         },
     ]
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f}s")

@@ -12,7 +12,7 @@ import pytest
 import torch
 
 import flooder_tpu_torch as ft
-from flooder_tpu_torch.ops import cuda_flood, cuda_fps
+from flooder_tpu_torch.ops import cuda_flood, cuda_flood_stats, cuda_fps
 from flooder_tpu_torch.ops.fps import farthest_point_sampling
 
 pytestmark = pytest.mark.cuda
@@ -97,6 +97,42 @@ def test_flood_kernel_matches_plain(cuda_device, tight, num_rand):
     assert (out_k[~masked_k] - out_p[~masked_p]).abs().max().item() <= 1e-6
     assert torch.equal(stats_k, stats_p)
     assert stats_k[:, 0].sum().item() > 0
+
+
+@pytest.mark.parametrize("tight,num_rand", [(True, None), (False, 300)])
+def test_flood_stats_kernel_matches_plain(cuda_device, tight, num_rand):
+    ops = _dim3_operands(cuda_device, tight=tight, num_rand=num_rand)
+    before = cuda_flood_stats.LAUNCHES
+    out_k, stats_k = cuda_flood_stats.flood_min_stats(*ops)
+    torch.cuda.synchronize()
+    assert cuda_flood_stats.LAUNCHES == before + 1
+    out_p, stats_p = cuda_flood_stats.flood_stats_reference(*ops)
+    masked_k = out_k >= cuda_flood._MASKED_D2
+    masked_p = out_p >= cuda_flood._MASKED_D2
+    assert torch.equal(masked_k, masked_p)
+    assert (out_k[~masked_k] - out_p[~masked_p]).abs().max().item() <= 1e-6
+    assert torch.equal(stats_k, stats_p)
+    assert stats_k[:, cuda_flood_stats.COL_TILES].sum().item() > 0
+    # the same tiles as K1, so the same output
+    out_1, stats_1 = cuda_flood.flood_min(*ops)
+    assert torch.equal(out_k, out_1)
+    assert stats_k[:, cuda_flood_stats.COL_TILES].sum().item() == (
+        cuda_flood.kernel_operations(stats_1)[0]
+    )
+
+
+def test_kernel_stats_tool_on_card(cuda_device):
+    from flooder_tpu_torch.tools import kernel_stats
+    from flooder_tpu_torch.tools.scene import build_scene
+
+    scene = build_scene(20000, 100)
+    before = cuda_flood_stats.LAUNCHES
+    seg_times, counters, parity = kernel_stats.run_with_stats(scene)
+    assert parity
+    assert cuda_flood_stats.LAUNCHES == before + 2  # warm-up + timed run
+    assert counters["visited_pairs"] == counters["worklist_pairs"] > 0
+    assert counters["computed_tiles"] == counters["production_units"] > 0
+    assert seg_times[0] > 0
 
 
 def test_flood_kernel_rejects_bad_operands(cuda_device):

@@ -1,7 +1,8 @@
 """Package rules of flooder_tpu_torch: it stands alone beside flooder_tpu.
 
 - importing it loads neither JAX nor flooder_tpu;
-- no module of it imports either (an AST scan, so lazy imports count);
+- no module of it imports either, nor the reference's ``tools/`` (an AST
+  scan, so lazy imports count);
 - no source of it points at a file inside flooder_tpu, and its native
   build compiles only its own sources;
 - entry points default to CUDA and raise without it.
@@ -19,7 +20,8 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PKG = REPO / "flooder_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flooder_tpu")
+# "tools" is the reference's own tool directory at the repo root
+FORBIDDEN = ("jax", "jaxlib", "flooder_tpu", "tools")
 
 
 def _py_files():
@@ -94,7 +96,7 @@ def test_native_build_uses_only_own_sources():
     from flooder_tpu_torch.native import build
 
     srcs = [build.PERSISTENCE_SRC] + [
-        build.cuda_source(n) for n in ("flood", "fps")
+        build.cuda_source(n) for n in ("flood", "fps", "flood_stats")
     ]
     for src in srcs:
         assert src.exists(), src
