@@ -14,6 +14,11 @@ FPS to 1000 landmarks, the Flood complex in grid mode (30 points per
 edge) and persistence in dimensions 0-2. Every launch counter is set to 0
 just before the main path and read just after; each kernel must have run.
 
+K2 runs the whole greedy loop as one cooperative launch; besides the
+main path's shapes it is held against its plain version on a cloud with
+more chunks than the card holds CTAs at once, so that CTAs own several
+chunks.
+
 The kernel-stats path runs kernel K3 (``csrc/flood_stats.cu``): K3 is held
 against its plain version on the tool's default 100k x 300 scene; on the
 main path's dimension-3 operands it is held against K1 (the same output,
@@ -47,7 +52,16 @@ REPS = 3
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 FLOOD_OPS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add, 1 min per in-ball pair
+# fp32 instructions K1 issues per in-ball pair: the inner loop of
+# flood_min_kernel<3> in SASS (cuobjdump -sass of build/flooder_tpu_torch/
+# libflood.so) holds 48 FADD, 16 FMUL, 32 FFMA and 16 FMNMX for 16 pairs
+# (4 witnesses x 4 samples), i.e. 3 sub, 1 mul, 2 FMA and 1 min a pair; its
+# issue floor is that count over 128 fp32 lanes per SM at the max SM clock.
+# A log line only: it is derived, not measured.
+FLOOD_INSTR_PER_PAIR = 7
+FP32_LANES_PER_SM = 128
 FPS_OPS_PER_POINT = 9  # the same per visited point (and one compare)
+FPS_MANY_CHUNKS_LANDMARKS = 64
 K3_PLAIN_POINTS = 100_000  # the kernel-stats tool's default scene
 K3_PLAIN_LANDMARKS = 300
 K3_LONGEST_BLOCKS = 16  # K3's plain check at 1M x 1k: whole blocks
@@ -58,10 +72,9 @@ def log(msg):
     print(f"# {msg}", flush=True)
 
 
-def card_line():
+def card_line(fields="name,power.limit"):
     res = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
+        ["nvidia-smi", f"--query-gpu={fields}", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     )
     return res.stdout.strip().splitlines()[0]
@@ -200,10 +213,8 @@ def main():
     log(f"kernel build: {time.perf_counter() - t0:.2f}s wall for flood, fps, "
         f"flood_stats in parallel; per source {build.BUILD_SECONDS}")
     for name, text in build.BUILD_LOG.items():
-        regs = re.findall(r"Used (\d+) registers.*?(\d+) bytes smem", text)
-        spills = re.findall(r"(\d+) bytes spill stores", text)
-        log(f"ptxas {name}: (registers, smem bytes) per kernel {regs}; "
-            f"spill stores {spills}")
+        log(f"ptxas {name}: (kernel, registers, spill-store bytes, static "
+            f"smem bytes) {build.ptxas_kernels(text)}")
     t0 = time.perf_counter()
     build.load_persistence()
     log(f"native persistence build: {time.perf_counter() - t0:.2f}s")
@@ -215,6 +226,21 @@ def main():
     fps_err_small = check_same_greedy(P, a, b, 0)
     log(f"K2 fps 200k x 256: same greedy selection as the plain version, "
         f"max |step d2 diff| {fps_err_small}")
+    del P
+    # more chunks than co-resident CTAs: CTAs own several chunks
+    ctas = cuda_fps.coresident_ctas(3)
+    n_many = cuda_fps.FPS_CHUNK * (ctas + 5)
+    P = torch.rand(n_many, 3, generator=torch.Generator(dev).manual_seed(11),
+                   device=dev)
+    a = cuda_fps.cuda_farthest_point_sampling(
+        P, FPS_MANY_CHUNKS_LANDMARKS, 3).cpu().numpy()
+    b = farthest_point_sampling(P, FPS_MANY_CHUNKS_LANDMARKS, 3).cpu().numpy()
+    fps_err_many = check_same_greedy(P, a, b, 3)
+    chunks = n_many // cuda_fps.FPS_CHUNK
+    log(f"K2 fps {n_many} x {FPS_MANY_CHUNKS_LANDMARKS} ({chunks} chunks on "
+        f"{ctas} co-resident CTAs): same "
+        f"greedy selection as the plain version, max |step d2 diff| "
+        f"{fps_err_many}")
     del P
 
     # ---- the main path's cloud, and K1 against its plain version -----------
@@ -235,15 +261,18 @@ def main():
     torch.cuda.synchronize()
     plain_ms = 1e3 * (time.perf_counter() - t0)
     flood_err = flood_d2_diff(out_k, out_p, "K1 against its plain version")
+    units_k = cuda_flood.kernel_operations(stats_k)[0]
+    units_p = cuda_flood.kernel_operations(stats_p)[0]
     if not torch.equal(stats_k, stats_p):
-        raise AssertionError("K1 admitted other units than its plain version")
+        raise AssertionError(f"K1 admitted other units than its plain "
+                             f"version: {units_k} against {units_p}")
     n_masked = int((out_k >= cuda_flood._MASKED_D2).sum())
     del ops, out_k, stats_k, out_p, stats_p
     log(f"K1 flood at the main path's shapes ({N_POINTS} witnesses, "
         f"{n_tets} tetrahedra, ppe {PPE}): max |d2 diff| {flood_err} against "
         f"the plain version, inf in the same places "
-        f"({n_masked} entries), the same admitted units; plain "
-        f"{plain_ms:.1f} ms (host clock, one run)")
+        f"({n_masked} entries), admitted units {units_k} (plain {units_p}), "
+        f"equal per CTA; plain {plain_ms:.1f} ms (host clock, one run)")
 
     # ---- a small pipeline on the card against the CPU ----------------------
     Y = ft.generate_swiss_cheese_points(3000, seed=5, device="cpu")[0]
@@ -285,8 +314,9 @@ def main():
             launches = {"fps": cuda_fps.LAUNCHES, "flood": cuda_flood.LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     log(f"main path launches (one run): {launches}")
-    if not (launches["fps"] > 0 and launches["flood"] > 0):
-        raise AssertionError(f"a kernel did not run on the main path: {launches}")
+    if launches != {"fps": 1, "flood": 1}:
+        raise AssertionError("the main path must launch K2 once and K1 once: "
+                             f"{launches}")
 
     counts = [int(v.shape[0]) for v in stree._verts]
     vals = np.concatenate(stree._filt)
@@ -331,9 +361,17 @@ def main():
     units, inball = cuda_flood.kernel_operations(stats_full)
     rt = ops[0].shape[2]
     k1_bound, k1_by = flood_bound_ms(ops, inball)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(card_line("clocks.max.sm").split()[0])
+    k1_floor = 1e3 * FLOOD_INSTR_PER_PAIR * inball / (
+        sms * FP32_LANES_PER_SM * clock_mhz * 1e6)
     log(f"K1 at 1M x 1k: {units} admitted (simplex, tile, sub-chunk) units, "
-        f"{units * cuda_flood.SUB * rt} executed pairs, {inball} in-ball "
-        f"pairs; kernel {k1_ms:.3f} ms, bound {k1_bound:.3f} ms ({k1_by})")
+        f"{units * cuda_flood.SUB * rt} pairs without compaction, {inball} "
+        f"in-ball pairs; kernel {k1_ms:.3f} ms, bound {k1_bound:.3f} ms "
+        f"({k1_by}); issue floor {k1_floor:.3f} ms (derived: "
+        f"{FLOOD_INSTR_PER_PAIR} fp32 instructions per in-ball pair from "
+        f"the SASS, {sms} SMs x {FP32_LANES_PER_SM} lanes at "
+        f"{clock_mhz:.0f} MHz)")
 
     # K2 against its plain version at the main path's shapes
     a = cuda_fps.cuda_farthest_point_sampling(X, N_LANDMARKS, 0).cpu().numpy()
@@ -346,6 +384,8 @@ def main():
     n0 = cuda_fps.LAUNCHES
     k2_ms = cuda_ms(lambda: cuda_fps.fps_kernel_run(prep, N_LANDMARKS), 5)
     k2_launches = (cuda_fps.LAUNCHES - n0) // 6  # warm-up + 5 timed runs
+    if k2_launches != 1:
+        raise AssertionError(f"K2 made {k2_launches} launches per run")
     k2_total = cuda_ms(
         lambda: cuda_fps.cuda_farthest_point_sampling(X, N_LANDMARKS, 0), 5
     )
@@ -358,9 +398,9 @@ def main():
     k2_bound = 1e3 * max(fps_ops / PEAK_FP32, fps_bytes / PEAK_BYTES)
     k2_by = "operations" if fps_ops / PEAK_FP32 >= fps_bytes / PEAK_BYTES \
         else "bytes"
-    log(f"K2 at 1M x 1k: greedy loop {k2_ms:.3f} ms for {k2_launches} "
-        f"counted CUDA launches ({1e3 * k2_ms / k2_launches:.2f} us per "
-        f"launch), with layout prep {k2_total:.3f} ms; {visits} chunk "
+    log(f"K2 at 1M x 1k: greedy loop {k2_ms:.3f} ms in {k2_launches} "
+        f"counted CUDA launch ({1e3 * k2_ms / (N_LANDMARKS - 1):.2f} us per "
+        f"greedy step), with layout prep {k2_total:.3f} ms; {visits} chunk "
         f"visits; plain {k2_plain:.1f} ms; bound {k2_bound:.4f} ms ({k2_by})")
 
     # ---- K3 against its plain version on the tool's default scene ---------
@@ -483,6 +523,8 @@ def main():
             "ms_with_prepare": k2_total, "plain_ms": k2_plain,
             "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
             "library_note": no_lib, "chunk_visits": visits,
+            "us_per_step": 1e3 * k2_ms / (N_LANDMARKS - 1),
+            "max_abs_err_many_chunks": fps_err_many,
         },
         {
             "name": "flood_min_stats", "route": "cuda",

@@ -7,75 +7,130 @@
 // (block of BS simplices, chunk of kd-ordered witnesses) pairs, each chunk
 // taken as SUB-witness sub-chunks.
 //
-// Design: one CTA per (simplex block, sample tile). The CTA takes the
+// Structure: one CTA per (simplex block, sample tile). The CTA takes the
 // block's simplices one after another; for each it keeps the running min
 // of its tile's samples in registers (SPT samples per thread), walks the
-// block's chunk list nearest-first (a per-block CSR built by the caller),
-// stages every admitted sub-chunk in shared memory with out-of-ball
-// witnesses moved to 3e18, and writes its output once. Nothing is carried
-// between CTAs, so there are no atomics, no aliased accumulator and no
-// launch segments (the TPU's sequential grid needed all three).
+// block's chunk list nearest-first (a per-block CSR built by the caller)
+// and writes its output once. Nothing is carried between CTAs, so there
+// are no atomics, no aliased accumulator and no launch segments (the TPU's
+// sequential grid needed all three). CTAs are launched longest work-list
+// first (`cta_order`, from the caller), so the longest blocks do not land
+// in the last wave.
 //
-// Two lossless skips, both exact:
-//  1. ball test: the sub-chunk's box must meet the simplex's ball;
+// Two skips, uniform over the CTA:
+//  1. ball test: the sub-chunk's box must meet the simplex's ball (exact:
+//     the plain version's arithmetic, so both decide alike);
 //  2. tile test: the squared gap between the sub-chunk's box and the
-//     tile's sample box must not exceed min(tile's current max running
-//     min, ub2), where ub2 is the static nearest-vertex bound (+inf unless
-//     the landmarks lie in the cloud). A sub-chunk farther than the tile's
-//     current worst sample cannot lower any sample of the tile. This
-//     per-tile bound is tighter than the TPU's per-simplex one.
+//     tile's sample box must not exceed min(pm, ub2), where pm is the
+//     tile's current max running min and ub2 the static nearest-vertex
+//     bound (+inf unless the landmarks lie in the cloud). It is lossless
+//     up to about an ulp of d2: rounding is monotone, so the gap bounds
+//     every separately rounded pair distance in the box, but the per-pair
+//     FMA (flood_common.cuh) can round a pair an ulp below it. pm comes
+//     from FMA-rounded mins and may differ from the plain version's by an
+//     ulp, so a gap within an ulp of pm can be admitted on one side and
+//     skipped on the other; on every input checked (chip_smoke.py,
+//     tests/test_torch_cuda.py) the admitted units are the plain version's.
 //
-// Arithmetic: the difference form, d2 += (y_i - x_i)^2 coordinate by
-// coordinate in fp32, every operation explicitly rounded (no FMA, no
-// tensor cores: the |x|^2 - 2x.y + |y|^2 form breaks the oracle tolerance,
-// pallas_flood.py:51-56). 3 * (3e18)^2 ~ 2.7e37 stays finite in fp32, and
-// outputs >= 1e30 mean "no witness in the ball".
+// What bounds it: fp32 instruction issue in the inner loop. Each (sample,
+// witness) pair costs 7 instructions (3 sub, 1 mul, 2 FMA, 1 min; see
+// flood_common.cuh), with one shared-memory broadcast per witness for SPT
+// samples; bytes are far below (inputs are read once per admitted unit,
+// mostly from L2). What the design does about it:
+//  - Compaction: a staged sub-chunk keeps its in-ball witnesses at the
+//    front of each 128-witness segment (warp ballot + popc), and the inner
+//    loop runs over the in-ball count rounded up to the unroll, not over
+//    all 512. The padding slots hold out-of-ball witnesses (at 3e18), and a
+//    unit with no in-ball witness folds in the one value such a witness
+//    gives: min is exact, so the output is the min over all 512 bit for
+//    bit (K3, which does not compact, gives the same).
+//  - One barrier per staging instead of seven: witnesses are staged into a
+//    double-buffered tile; each thread fetches its own slots of the next
+//    candidate sub-chunk with cp.async while the CTA computes, so raw data
+//    needs no barrier; the tile test's block max is folded into the staging
+//    barrier (each warp publishes its max of the running mins with the
+//    staged tile). The tile test needs the max after the last computed
+//    unit, so the first candidate after a computed unit is staged before
+//    its test; a rejected one costs that staging and its barrier.
 //
-// What bounds it: fp32 operations. Each in-ball (sample, witness) pair of
-// an admitted unit costs 9 (3 sub, 3 mul, 2 add, 1 min); the witness is a
-// shared-memory broadcast read once per SPT samples, and the inputs are
-// read from device memory once per admitted unit, so bytes are far below
-// the operations. The caller gets per-CTA counts of admitted units and of
-// in-ball pairs, from which the bound is computed.
+// Arithmetic: the difference form in fp32 (flood_common.cuh; no tensor
+// cores: the |x|^2 - 2x.y + |y|^2 form breaks the oracle tolerance,
+// pallas_flood.py:51-56); the ball, box and tile tests explicitly rounded
+// as in the plain version. 3 * (3e18)^2 ~ 2.7e37 stays finite in fp32, and
+// outputs >= 1e30 mean "no witness in the ball". The caller gets per-CTA
+// counts of admitted units and of in-ball pairs, from which the bound is
+// computed.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "flood_common.cuh"
+
 namespace {
 
-constexpr int SUB = 512;  // witnesses per sub-chunk
-constexpr int SPT = 4;    // samples per thread
-constexpr int MAX_THREADS = 512 / SPT;
-constexpr float MASK = 3e18f;
+using flood::MASK;
+using flood::SUB;
 
-__device__ __forceinline__ float sq_add(float acc, float diff) {
-  return __fadd_rn(acc, __fmul_rn(diff, diff));
+constexpr int SEGW = 128;         // witnesses per staging segment (4 a lane)
+constexpr int NSEG = SUB / SEGW;  // segments per sub-chunk
+constexpr int UNROLL = 4;         // inner-loop unroll; counts round up to it
+constexpr int MAX_RT = 512;       // samples per tile, at most
+constexpr int SPT = 4;            // samples per thread
+constexpr int MAX_WARPS = MAX_RT / SPT / 32;
+constexpr unsigned FULL = 0xffffffffu;
+
+__device__ __forceinline__ void cp_async16(void *smem, const void *gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
 }
 
-// Max over the block (every thread gets it). Ends in a barrier, so `red`
-// may be reused right after.
-__device__ __forceinline__ float block_max(float v, float *red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  const int nwarps = (blockDim.x + 31) >> 5;
-  float m = red[0];
-  for (int w = 1; w < nwarps; ++w) m = fmaxf(m, red[w]);
-  __syncthreads();
-  return m;
+// Squared distance from the ball centre c to the sub-chunk's box (skip 1).
+template <int DIM>
+__device__ __forceinline__ float near2(const float *sub_lo,
+                                       const float *sub_hi, int sub,
+                                       const float *c) {
+  float n2 = 0.f;
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) {
+    const float lo = sub_lo[(size_t)sub * DIM + d];
+    const float hi = sub_hi[(size_t)sub * DIM + d];
+    n2 = flood::sq_add(n2, __fsub_rn(fminf(fmaxf(c[d], lo), hi), c[d]));
+  }
+  return n2;
 }
 
-__device__ __forceinline__ float comp(const float4 &v, int d) {
-  return d == 0 ? v.x : d == 1 ? v.y : d == 2 ? v.z : v.w;
+// Squared gap between the sub-chunk's box and the tile's sample box, both
+// ball-local (skip 2).
+template <int DIM>
+__device__ __forceinline__ float gap2(const float *sub_lo,
+                                      const float *sub_hi, int sub,
+                                      const float *c, const float *tlo,
+                                      const float *thi) {
+  float g2 = 0.f;
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) {
+    const float blo = __fsub_rn(sub_lo[(size_t)sub * DIM + d], c[d]);
+    const float bhi = __fsub_rn(sub_hi[(size_t)sub * DIM + d], c[d]);
+    const float g =
+        fmaxf(fmaxf(__fsub_rn(blo, thi[d]), __fsub_rn(tlo[d], bhi)), 0.f);
+    g2 = flood::sq_add(g2, g);
+  }
+  return g2;
 }
 
 template <int DIM>
-__global__ void __launch_bounds__(MAX_THREADS) flood_min_kernel(
+__global__ void __launch_bounds__(MAX_RT / SPT) flood_min_kernel(
     const float *__restrict__ samples,    // (S, NR, RT, DIM) ball-local
-    const float *__restrict__ witnesses,  // (W, DIM) kd-ordered
+    const float *__restrict__ witnesses,  // (W, DIM) kd-ordered, 16B-aligned
     const float *__restrict__ sub_lo,     // (W / SUB, DIM) sub-chunk boxes
     const float *__restrict__ sub_hi,
     const float *__restrict__ centers,  // (S, DIM)
@@ -85,16 +140,37 @@ __global__ void __launch_bounds__(MAX_THREADS) flood_min_kernel(
     const float *__restrict__ ub2,        // (S, NR)
     const int *__restrict__ blk_ptr,      // (n_blk + 1,) CSR offsets
     const int *__restrict__ blk_chunks,   // chunk ids, nearest first
+    const int *__restrict__ cta_order,    // (n_blk,) block of each CTA row
     float *__restrict__ out,              // (S, NR, RT) min d^2
     long long *__restrict__ stats,        // (n_blk * NR, 2)
-    int nr, int rt, int bs, int subs_per_chunk) {
-  __shared__ float4 wsh[SUB];
-  __shared__ float red[32];
-  const int cta = blockIdx.x;
-  const int b = cta / nr, r = cta - b * nr;
+    int nr, int rt, int bs, int spc) {
+  // raw: each lane's own slots of the next sub-chunk (cp.async target, read
+  // back only by the lane that fetched them); wsh: the staged tile
+  __shared__ __align__(16) float raw[SUB * DIM];
+  __shared__ float4 wsh[2][SUB];
+  __shared__ int segcnt[2][NSEG];
+  __shared__ float wmax[2][MAX_WARPS];
+
+  const int b = cta_order[blockIdx.x / nr];
+  const int r = blockIdx.x - (blockIdx.x / nr) * nr;
   const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+  const unsigned lanes_below = (1u << lane) - 1u;
   const int c0 = blk_ptr[b], c1 = blk_ptr[b + 1];
   long long units = 0, inball = 0;
+  int wb = 0;  // the staging buffer no thread reads
+
+  // each warp fetches its segments of sub-chunk `sub` into raw
+  auto fetch = [&](int sub) {
+    cp_async_wait_all();  // no older copy may land after this one
+    for (int seg = warp; seg < NSEG; seg += nw) {
+      const size_t off = (size_t)(seg * SEGW + 4 * lane) * DIM;
+      const float *src = witnesses + (size_t)sub * SUB * DIM + off;
+#pragma unroll
+      for (int j = 0; j < DIM; ++j) cp_async16(raw + off + 4 * j, src + 4 * j);
+    }
+    cp_async_commit();
+  };
 
   for (int si = 0; si < bs; ++si) {
     const int s = b * bs + si;
@@ -120,84 +196,114 @@ __global__ void __launch_bounds__(MAX_THREADS) flood_min_kernel(
       acc[k] = CUDART_INF_F;
     }
 
-    for (int p = c0; p < c1; ++p) {
-      const int chunk = blk_chunks[p];
-      for (int q = 0; q < subs_per_chunk; ++q) {
-        const int sub = chunk * subs_per_chunk + q;
-        float lo[DIM], hi[DIM];
-        float near2 = 0.f;
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) {
-          lo[d] = sub_lo[(size_t)sub * DIM + d];
-          hi[d] = sub_hi[(size_t)sub * DIM + d];
-          const float nd = __fsub_rn(fminf(fmaxf(c[d], lo[d]), hi[d]), c[d]);
-          near2 = sq_add(near2, nd);
+    // the list cursor and the next sub-chunk that passes the ball test
+    int p = c0, q = 0;
+    auto next_ball = [&]() -> int {
+      while (p < c1) {
+        const int sub = blk_chunks[p] * spc + q;
+        if (++q == spc) {
+          q = 0;
+          ++p;
         }
-        if (!(near2 <= r2)) continue;  // skip 1, uniform over the CTA
+        if (near2<DIM>(sub_lo, sub_hi, sub, c) <= r2) return sub;  // skip 1
+      }
+      return -1;
+    };
 
-        float pm = acc[0];
-#pragma unroll
-        for (int k = 1; k < SPT; ++k) pm = fmaxf(pm, acc[k]);
-        pm = block_max(pm, red);
-        float gap2 = 0.f;
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) {
-          const float blo = __fsub_rn(lo[d], c[d]);
-          const float bhi = __fsub_rn(hi[d], c[d]);
-          const float g = fmaxf(
-              fmaxf(__fsub_rn(blo, thi[d]), __fsub_rn(tlo[d], bhi)), 0.f);
-          gap2 = sq_add(gap2, g);
+    float pm = CUDART_INF_F;  // block max of acc, valid unless `dirty`
+    float wm = CUDART_INF_F;  // this warp's max of acc
+    bool dirty = false;       // acc changed since pm was taken
+    bool fetched = false;     // cand's raw data is on its way
+    int cand = next_ball();
+    while (cand >= 0) {
+      if (!dirty) {
+        // pm is exact: test before staging
+        if (!(gap2<DIM>(sub_lo, sub_hi, cand, c, tlo, thi) <= fminf(pm, ub))) {
+          cand = next_ball();
+          fetched = false;
+          continue;
         }
-        if (!(gap2 <= fminf(pm, ub))) continue;  // skip 2, uniform
+        if (!fetched) fetch(cand);
+      }
 
-        // stage the sub-chunk, ball-local, out-of-ball witnesses far away
-        // (the barrier inside block_max ordered the previous readers)
-        int cnt = 0;
-        for (int base = 0; base < SUB; base += T) {
-          const int j = base + tid;
-          int in = 0;
-          if (j < SUB) {
-            const float *y = witnesses + ((size_t)sub * SUB + j) * DIM;
-            float yl[4] = {0.f, 0.f, 0.f, 0.f};
-            float y2 = 0.f;
+      // stage cand into wsh[wb], compacted per segment
+      cp_async_wait_all();
+      int total = 0;
+      for (int seg = warp; seg < NSEG; seg += nw) {
+        const float *own = raw + (size_t)(seg * SEGW + 4 * lane) * DIM;
+        float4 yl[4];
+        bool in[4];
+        int below = 0, cnt = 0;
 #pragma unroll
-            for (int d = 0; d < DIM; ++d) {
-              yl[d] = __fsub_rn(y[d], c[d]);
-              y2 = d == 0 ? __fmul_rn(yl[d], yl[d]) : sq_add(y2, yl[d]);
-            }
-            in = y2 <= r2;
-            if (!in) {
+        for (int i = 0; i < 4; ++i) {
+          in[i] = flood::ball_local<DIM>(own + i * DIM, c, r2, yl[i]);
+          const unsigned bal = __ballot_sync(FULL, in[i]);
+          below += __popc(bal & lanes_below);
+          cnt += __popc(bal);
+        }
+        float4 *dst = wsh[wb] + seg * SEGW;
+        int nin = below, nout = 4 * lane - below;
 #pragma unroll
-              for (int d = 0; d < DIM; ++d) yl[d] = MASK;
-            }
-            wsh[j] = make_float4(yl[0], yl[1], yl[2], yl[3]);
+        for (int i = 0; i < 4; ++i) {
+          // in-ball witnesses to the front, the others from the back
+          const int pos = in[i] ? nin++ : SEGW - 1 - nout++;
+          dst[pos] = in[i] ? yl[i] : flood::masked<DIM>();
+        }
+        if (lane == 0) segcnt[wb][seg] = cnt;
+      }
+      if (dirty && lane == 0) wmax[wb][warp] = wm;
+      // fetch the next ball candidate while this one is tested and computed
+      const int nxt = next_ball();
+      if (nxt >= 0) fetch(nxt);
+      __syncthreads();  // publishes wsh[wb], segcnt[wb] and wmax[wb]
+
+      if (dirty) {
+        pm = wmax[wb][0];
+        for (int w = 1; w < nw; ++w) pm = fmaxf(pm, wmax[wb][w]);
+        dirty = false;
+      }
+      if (gap2<DIM>(sub_lo, sub_hi, cand, c, tlo, thi) <= fminf(pm, ub)) {
+        // an admitted unit (skip 2 passed)
+        for (int seg = 0; seg < NSEG; ++seg) {
+          const int n = segcnt[wb][seg];
+          total += n;
+          const int n_pad = (n + UNROLL - 1) / UNROLL * UNROLL;
+          const float4 *ys = wsh[wb] + seg * SEGW;
+#pragma unroll 4
+          for (int w = 0; w < n_pad; ++w) {
+            const float4 yv = ys[w];
+#pragma unroll
+            for (int k = 0; k < SPT; ++k)
+              acc[k] = fminf(acc[k], flood::pair_d2<DIM>(yv, x[k]));
           }
-          cnt += __syncthreads_count(in);
+        }
+        if (total == 0) {
+          // every witness is out of the ball: they all give this value
+          const float4 m = flood::masked<DIM>();
+#pragma unroll
+          for (int k = 0; k < SPT; ++k)
+            acc[k] = fminf(acc[k], flood::pair_d2<DIM>(m, x[k]));
         }
         units += 1;
-        inball += cnt;
-
-#pragma unroll 4
-        for (int w = 0; w < SUB; ++w) {
-          const float4 yv = wsh[w];
+        inball += total;
+        wm = acc[0];
 #pragma unroll
-          for (int k = 0; k < SPT; ++k) {
-            float d2 = 0.f;
-#pragma unroll
-            for (int d = 0; d < DIM; ++d)
-              d2 = sq_add(d2, __fsub_rn(comp(yv, d), x[k][d]));
-            acc[k] = fminf(acc[k], d2);
-          }
-        }
-        __syncthreads();  // all reads of wsh done before the next staging
+        for (int k = 1; k < SPT; ++k) wm = fmaxf(wm, acc[k]);
+        for (int off = 16; off > 0; off >>= 1)
+          wm = fmaxf(wm, __shfl_xor_sync(FULL, wm, off));
+        dirty = true;
+        wb ^= 1;
       }
+      cand = nxt;
+      fetched = true;
     }
 #pragma unroll
     for (int k = 0; k < SPT; ++k) out[tile * rt + tid + k * T] = acc[k];
   }
   if (tid == 0) {
-    stats[2 * (size_t)cta] = units;
-    stats[2 * (size_t)cta + 1] = inball * rt;
+    const size_t row = (size_t)b * nr + r;
+    stats[2 * row] = units;
+    stats[2 * row + 1] = inball * rt;
   }
 }
 
@@ -207,14 +313,14 @@ cudaError_t launch(const float *samples, const float *witnesses,
                    const float *centers, const float *radii,
                    const float *tile_lo, const float *tile_hi,
                    const float *ub2, const int *blk_ptr,
-                   const int *blk_chunks, float *out, long long *stats,
-                   int n_blk, int nr, int rt, int bs, int subs_per_chunk,
-                   cudaStream_t stream, long long *launched) {
+                   const int *blk_chunks, const int *cta_order, float *out,
+                   long long *stats, int n_blk, int nr, int rt, int bs,
+                   int spc, cudaStream_t stream, long long *launched) {
   const long long ctas = (long long)n_blk * nr;
   if (ctas == 0) return cudaSuccess;
   flood_min_kernel<DIM><<<(unsigned)ctas, rt / SPT, 0, stream>>>(
       samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, tile_hi,
-      ub2, blk_ptr, blk_chunks, out, stats, nr, rt, bs, subs_per_chunk);
+      ub2, blk_ptr, blk_chunks, cta_order, out, stats, nr, rt, bs, spc);
   const cudaError_t e = cudaGetLastError();
   if (e == cudaSuccess) ++*launched;
   return e;
@@ -231,43 +337,45 @@ const char *flooder_cuda_error_string(int code) {
 int flood_sub() { return SUB; }
 
 // Launch K1 on `stream`. `rt` must be a multiple of 128 and at most 512;
-// `dim` 1..4. *launched is set to the number of kernel launches enqueued
-// without error (0 when there is no CTA). Returns 0 or the CUDA launch
-// error.
+// `dim` 1..4; `cta_order` a permutation of the blocks (CTA row i runs block
+// cta_order[i]); `witnesses` 16-byte aligned. *launched is set to the
+// number of kernel launches enqueued without error (0 when there is no
+// CTA). Returns 0 or the CUDA launch error.
 int flood_min_launch(const float *samples, const float *witnesses,
                      const float *sub_lo, const float *sub_hi,
                      const float *centers, const float *radii,
                      const float *tile_lo, const float *tile_hi,
                      const float *ub2, const int *blk_ptr,
-                     const int *blk_chunks, float *out, long long *stats,
-                     int n_blk, int nr, int rt, int dim, int bs,
-                     int subs_per_chunk, void *stream,
+                     const int *blk_chunks, const int *cta_order, float *out,
+                     long long *stats, int n_blk, int nr, int rt, int dim,
+                     int bs, int subs_per_chunk, void *stream,
                      long long *launched) {
   *launched = 0;
-  if (rt <= 0 || rt > SPT * MAX_THREADS || rt % 128 != 0)
+  if (rt <= 0 || rt > MAX_RT || rt % 128 != 0 ||
+      reinterpret_cast<uintptr_t>(witnesses) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   switch (dim) {
     case 1:
       e = launch<1>(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, out, stats,
-                    n_blk, nr, rt, bs, subs_per_chunk, s, launched);
+                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, cta_order,
+                    out, stats, n_blk, nr, rt, bs, subs_per_chunk, s, launched);
       break;
     case 2:
       e = launch<2>(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, out, stats,
-                    n_blk, nr, rt, bs, subs_per_chunk, s, launched);
+                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, cta_order,
+                    out, stats, n_blk, nr, rt, bs, subs_per_chunk, s, launched);
       break;
     case 3:
       e = launch<3>(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, out, stats,
-                    n_blk, nr, rt, bs, subs_per_chunk, s, launched);
+                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, cta_order,
+                    out, stats, n_blk, nr, rt, bs, subs_per_chunk, s, launched);
       break;
     case 4:
       e = launch<4>(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, out, stats,
-                    n_blk, nr, rt, bs, subs_per_chunk, s, launched);
+                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, cta_order,
+                    out, stats, n_blk, nr, rt, bs, subs_per_chunk, s, launched);
       break;
     default:
       e = cudaErrorInvalidValue;

@@ -10,7 +10,8 @@
 //   col 1  admitted (simplex, sub-chunk) units,
 //   col 2  computed (simplex, tile, sub-chunk) sample tiles.
 //
-// Three tests, all exact:
+// Three tests, on the running mins K1 also computes (so K3 decides as K1
+// does; against the plain version see flood.cu's note on the tile test):
 //  1. ball: the sub-chunk's box must meet the simplex's ball;
 //  2. unit: the squared gap between the sub-chunk's box and the simplex's
 //     sample box must not exceed the simplex's bound, the max of its running
@@ -32,12 +33,14 @@
 // between CTAs: no atomics, no aliased accumulator, no launch segments, no
 // lane-masked counter rows, and the witnesses keep their (W, dim) layout.
 //
-// Arithmetic: K1's difference form, every operation explicitly rounded
-// (built with -fmad=false), so the kernel, its plain PyTorch version and K1
-// agree bit for bit.
+// Arithmetic: K1's difference form, through the device functions K1 uses
+// (flood_common.cuh), so K3 and K1 agree bit for bit; both are within an
+// ulp or so of their plain PyTorch versions (the per-pair FMA), and every
+// test is explicitly rounded as there (built with -fmad=false).
 //
-// What bounds it: fp32 operations, as K1: 9 per in-ball (sample, witness)
-// pair of the computed tiles. Bytes are far below: the samples of a tile
+// What bounds it: fp32 instruction issue, as K1: 7 per (sample, witness)
+// pair of the computed tiles, over all 512 witnesses of a staged sub-chunk
+// (K3 does not compact them). Bytes are far below: the samples of a tile
 // are read once per computed tile from L2, and the witnesses once per
 // admitted unit.
 
@@ -45,16 +48,14 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "flood_common.cuh"
+
 namespace {
 
-constexpr int SUB = 512;  // witnesses per sub-chunk
-constexpr int SPT = 4;    // samples per thread
+using flood::SUB;
+using flood::sq_add;
+constexpr int SPT = 4;  // samples per thread
 constexpr int MAX_THREADS = 512 / SPT;
-constexpr float MASK = 3e18f;
-
-__device__ __forceinline__ float sq_add(float acc, float diff) {
-  return __fadd_rn(acc, __fmul_rn(diff, diff));
-}
 
 // Max over the block (every thread gets it). Ends in a barrier, so `red`
 // may be reused right after.
@@ -69,10 +70,6 @@ __device__ __forceinline__ float block_max(float v, float *red) {
   for (int w = 1; w < nwarps; ++w) m = fmaxf(m, red[w]);
   __syncthreads();
   return m;
-}
-
-__device__ __forceinline__ float comp(const float4 &v, int d) {
-  return d == 0 ? v.x : d == 1 ? v.y : d == 2 ? v.z : v.w;
 }
 
 template <int DIM>
@@ -169,19 +166,10 @@ __global__ void __launch_bounds__(MAX_THREADS) flood_stats_kernel(
           // the sub-chunk, ball-local, out-of-ball witnesses far away (the
           // barrier that ended the previous unit ordered its readers)
           for (int j = tid; j < SUB; j += T) {
-            const float *y = witnesses + ((size_t)sub * SUB + j) * DIM;
-            float yl[4] = {0.f, 0.f, 0.f, 0.f};
-            float y2 = 0.f;
-#pragma unroll
-            for (int d = 0; d < DIM; ++d) {
-              yl[d] = __fsub_rn(y[d], c[d]);
-              y2 = d == 0 ? __fmul_rn(yl[d], yl[d]) : sq_add(y2, yl[d]);
-            }
-            if (!(y2 <= r2)) {
-#pragma unroll
-              for (int d = 0; d < DIM; ++d) yl[d] = MASK;
-            }
-            wsh[j] = make_float4(yl[0], yl[1], yl[2], yl[3]);
+            float4 yl;
+            const bool in = flood::ball_local<DIM>(
+                witnesses + ((size_t)sub * SUB + j) * DIM, c, r2, yl);
+            wsh[j] = in ? yl : flood::masked<DIM>();
           }
           __syncthreads();
           staged = true;
@@ -200,13 +188,8 @@ __global__ void __launch_bounds__(MAX_THREADS) flood_stats_kernel(
         for (int w = 0; w < SUB; ++w) {
           const float4 yv = wsh[w];
 #pragma unroll
-          for (int k = 0; k < SPT; ++k) {
-            float d2 = 0.f;
-#pragma unroll
-            for (int d = 0; d < DIM; ++d)
-              d2 = sq_add(d2, __fsub_rn(comp(yv, d), x[k][d]));
-            acc[k] = fminf(acc[k], d2);
-          }
+          for (int k = 0; k < SPT; ++k)
+            acc[k] = fminf(acc[k], flood::pair_d2<DIM>(yv, x[k]));
         }
         float pm = acc[0];
 #pragma unroll

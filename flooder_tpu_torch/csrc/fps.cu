@@ -10,16 +10,25 @@
 // the lowest lane (pallas_fps.py:176-205), i.e. the lowest sorted index.
 //
 // What bounds it on the card: the L-1 steps form a chain of dependent
-// steps, and each step is two launches (update, select) of a few
-// microseconds of work, so launch latency sets the time, not bytes or
-// operations (the chunk skip already makes the streamed bytes small).
-// The design keeps the whole loop on the device with no host round trip:
-// the host function below enqueues all 2(L-1) launches back to back on the
-// caller's stream, counts them for the caller, and the selected index
-// travels through device memory.
-// Fusing the loop into one cooperative kernel or a CUDA graph is left for
-// a later change.
-//
+// steps of a few microseconds of work each (the box skip leaves some ten
+// chunks of the 1M cloud's 123 to fold per step), so the cost of getting
+// from one step to the next sets the time, not bytes or operations. The
+// design runs the whole loop as ONE persistent cooperative kernel: CTA g
+// owns chunks g, g+G, ... (G co-resident CTAs, from the occupancy query),
+// keeps its first chunk's running min d^2 and, up to 5 coordinates, its
+// points in shared memory, and per step folds the landmark into its
+// chunks that pass the box test, publishes its chunks' (max, argmax) in
+// one of two exchange buffers chosen by step parity, and meets the other
+// CTAs at one grid barrier. After the barrier every CTA reduces all
+// candidates with the same tie rule, so all agree on the next landmark
+// without a second barrier; CTA 0 records it. The barrier is an arrival
+// counter in device memory; a cooperative launch guarantees that every CTA
+// is resident, and the launch fails (the caller raises) when the grid
+// cannot be. What is left per step is a chain of device-memory round trips
+// (the landmark's coordinates, the barrier's counter, the candidates) and
+// block reductions, not work. The kernel is compiled per coordinate count,
+// so a fold issues no instruction for absent coordinates.
+
 // Arithmetic: every square and sum is an explicitly rounded multiply and
 // add (no FMA contraction), so the box bound is a true lower bound of the
 // computed point distances and results equal the plain PyTorch version's.
@@ -31,8 +40,10 @@
 namespace {
 
 constexpr int MAX_DIM = 8;
-constexpr int UPDATE_THREADS = 512;
-constexpr int SELECT_THREADS = 1024;
+constexpr int THREADS = 1024;
+// A barrier wait that sees no progress for this many polls (seconds)
+// traps instead of hanging the card.
+constexpr unsigned long long SPIN_LIMIT = 1ull << 24;
 
 // (value, index) max with the lower index winning a tie
 __device__ __forceinline__ void argmax_combine(float &v, int &i, float v2,
@@ -43,6 +54,8 @@ __device__ __forceinline__ void argmax_combine(float &v, int &i, float v2,
   }
 }
 
+// Block-wide argmax; thread 0 gets the result. Ends in a barrier, so the
+// scratch may be reused right after.
 __device__ __forceinline__ void block_argmax(float &v, int &i, float *sv,
                                              int *si) {
   const unsigned full = 0xffffffffu;
@@ -67,88 +80,225 @@ __device__ __forceinline__ void block_argmax(float &v, int &i, float *sv,
       argmax_combine(v, i, v2, i2);
     }
   }
+  __syncthreads();
 }
 
-// One block per chunk: fold the current landmark into the chunk if its
-// box can lower it, and refresh the chunk's max/argmax.
-__global__ void __launch_bounds__(UPDATE_THREADS)
-    fps_update(const float *__restrict__ pts,  // (dim, npad) sorted cloud
-               int dim, int npad, int chunk,
-               const float *__restrict__ box_lo,  // (dim, nchunks)
-               const float *__restrict__ box_hi, int nchunks,
-               float *__restrict__ mind2,  // (npad,) running min d^2
-               float *__restrict__ cmax,   // (nchunks,)
-               int *__restrict__ cbest,    // (nchunks,) sorted index
-               const int *__restrict__ cur,  // (1,) current landmark
-               unsigned long long *__restrict__ visits) {
-  __shared__ float sv[32];
-  __shared__ int si[32];
-  const int c = blockIdx.x;
-  const int lmi = *cur;
-  float lm[MAX_DIM];
-  float lb2 = 0.f;
-#pragma unroll
-  for (int d = 0; d < MAX_DIM; ++d) {
-    if (d < dim) {
-      lm[d] = pts[(size_t)d * npad + lmi];
-      float g = fmaxf(fmaxf(__fsub_rn(box_lo[d * nchunks + c], lm[d]),
-                            __fsub_rn(lm[d], box_hi[d * nchunks + c])),
-                      0.f);
-      lb2 = __fadd_rn(lb2, __fmul_rn(g, g));
-    }
+// Grid barrier over the CTAs of one cooperative launch: every CTA adds 1
+// to a 64-bit arrival counter with release semantics and waits until it
+// reaches `target` (G x the barrier's ordinal) with acquire semantics, as
+// CUTLASS's GenericBarrier does. Writes before it are visible after it.
+__device__ __forceinline__ void grid_sync(unsigned long long *bar,
+                                          unsigned long long target) {
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    asm volatile("red.release.gpu.global.add.u64 [%0], 1;" ::"l"(bar)
+                 : "memory");
+    unsigned long long seen, polls = 0;
+    do {
+      asm volatile("ld.acquire.gpu.global.u64 %0, [%1];"
+                   : "=l"(seen)
+                   : "l"(bar)
+                   : "memory");
+      if (++polls == SPIN_LIMIT) __trap();
+    } while (seen < target);
   }
-  // strict <: when the bound equals the chunk max no member can drop
-  if (!(lb2 < cmax[c])) return;  // uniform over the block
+  __syncthreads();
+}
 
-  float best = -CUDART_INF_F;
-  int bidx = INT32_MAX;
-  const int base = c * chunk;
-  for (int j = threadIdx.x; j < chunk; j += blockDim.x) {
-    const int i = base + j;
-    float d2 = 0.f;
+// The kernel's operands (one struct, so that the cooperative launch passes
+// one argument).
+struct FpsArgs {
+  const float *pts;     // (dim, npad) sorted cloud
+  int npad, chunk;
+  const float *box_lo;  // (dim, nchunks)
+  const float *box_hi;
+  int nchunks;
+  float *mind2;         // (npad,) running min d^2, +inf
+  float *cmax;          // (nchunks,) chunk max, +inf
+  int *cbest;           // (nchunks,) chunk argmax
+  float *xv;            // (2, nchunks) exchange: max
+  int *xi;              // (2, nchunks) exchange: argmax
+  int *out;             // (n_samples,); out[0] = start
+  int n_samples;
+  unsigned long long *visits;
+  unsigned long long *bar;  // (1,) zero
+};
+
+// Dynamic shared memory: the running min d^2 of the CTA's first chunk and,
+// up to MAX_CACHED_DIM coordinates, that chunk's points (one CTA of
+// THREADS fills an SM, so the SM's shared memory is the CTA's to use).
+constexpr int MAX_CACHED_DIM = 5;
+
+template <int DIM>
+size_t smem_bytes(int chunk) {
+  return (size_t)chunk * sizeof(float) * (DIM <= MAX_CACHED_DIM ? DIM + 1 : 1);
+}
+
+// Fold the landmark into one chunk: points p[d * stride + j], running
+// mins m[j], j < chunk; returns the chunk's (max, argmax) to thread 0.
+template <int DIM>
+__device__ __forceinline__ void fold(const float *p, int stride, float *m,
+                                     int chunk, int base, const float *lm,
+                                     float &best, int &bidx, float *sv,
+                                     int *si) {
+  best = -CUDART_INF_F;
+  bidx = INT32_MAX;
+#pragma unroll 4
+  for (int j = threadIdx.x; j < chunk; j += THREADS) {
+    const float d0 = __fsub_rn(p[j], lm[0]);
+    float d2 = __fmul_rn(d0, d0);
 #pragma unroll
-    for (int d = 0; d < MAX_DIM; ++d) {
-      if (d < dim) {
-        float diff = __fsub_rn(pts[(size_t)d * npad + i], lm[d]);
-        d2 = d == 0 ? __fmul_rn(diff, diff)
-                    : __fadd_rn(d2, __fmul_rn(diff, diff));
-      }
+    for (int d = 1; d < DIM; ++d) {
+      const float diff = __fsub_rn(p[d * stride + j], lm[d]);
+      d2 = __fadd_rn(d2, __fmul_rn(diff, diff));
     }
-    const float m = fminf(mind2[i], d2);
-    mind2[i] = m;
-    if (m > best) {  // indices grow within a thread: first max kept
-      best = m;
-      bidx = i;
+    const float mm = fminf(m[j], d2);
+    m[j] = mm;
+    if (mm > best) {  // indices grow within a thread: first max kept
+      best = mm;
+      bidx = base + j;
     }
   }
   block_argmax(best, bidx, sv, si);
-  if (threadIdx.x == 0) {
-    cmax[c] = best;
-    cbest[c] = bidx;
-    atomicAdd(visits, 1ull);  // instrumentation: chunk visits
-  }
 }
 
-// One block: global argmax over the chunk maxima (lowest chunk on a tie,
-// and each chunk's argmax is its lowest lane), record it, make it current.
-__global__ void __launch_bounds__(SELECT_THREADS)
-    fps_select(const float *__restrict__ cmax, const int *__restrict__ cbest,
-               int nchunks, int step, int *__restrict__ out,
-               int *__restrict__ cur) {
+template <int DIM>
+__global__ void __launch_bounds__(THREADS) fps_loop(const FpsArgs a) {
+  constexpr bool CACHED = DIM <= MAX_CACHED_DIM;
+  extern __shared__ float dyn[];
+  float *mloc = dyn;          // running min d^2 of chunk blockIdx.x
+  float *ploc = dyn + a.chunk;  // its points, (DIM, chunk), if CACHED
   __shared__ float sv[32];
   __shared__ int si[32];
-  float best = -CUDART_INF_F;
-  int bc = INT32_MAX;
-  for (int c = threadIdx.x; c < nchunks; c += blockDim.x) {
-    argmax_combine(best, bc, cmax[c], c);
+  __shared__ int s_next;
+  const int G = gridDim.x, g = blockIdx.x, tid = threadIdx.x;
+  const float *own = a.pts + (size_t)g * a.chunk;
+  for (int j = tid; j < a.chunk; j += THREADS) {
+    mloc[j] = CUDART_INF_F;
+    if (CACHED) {
+#pragma unroll
+      for (int d = 0; d < DIM; ++d)
+        ploc[d * a.chunk + j] = own[(size_t)d * a.npad + j];
+    }
   }
-  block_argmax(best, bc, sv, si);
-  if (threadIdx.x == 0) {
-    const int idx = cbest[bc];
-    out[step] = idx;
-    *cur = idx;
+  __syncthreads();
+
+  unsigned long long visits = 0;  // thread 0's count of chunk visits
+  int cur = a.out[0];
+  for (int step = 1; step < a.n_samples; ++step) {
+    float lm[DIM];
+#pragma unroll
+    for (int d = 0; d < DIM; ++d)
+      lm[d] = __ldg(a.pts + (size_t)d * a.npad + cur);
+    const int par = step & 1;
+
+    for (int c = g; c < a.nchunks; c += G) {
+      float lb2 = 0.f;
+#pragma unroll
+      for (int d = 0; d < DIM; ++d) {
+        const float gd = fmaxf(
+            fmaxf(__fsub_rn(__ldg(a.box_lo + d * a.nchunks + c), lm[d]),
+                  __fsub_rn(lm[d], __ldg(a.box_hi + d * a.nchunks + c))),
+            0.f);
+        lb2 = __fadd_rn(lb2, __fmul_rn(gd, gd));
+      }
+      // this CTA alone writes cmax[c] / cbest[c] (thread 0, before a
+      // barrier)
+      float cm = __ldcg(a.cmax + c);
+      int cb = __ldcg(a.cbest + c);
+      // strict <: when the bound equals the chunk max no member can drop
+      if (lb2 < cm) {  // uniform over the block
+        const int base = c * a.chunk;
+        float best;
+        int bidx;
+        if (c == g && CACHED)
+          fold<DIM>(ploc, a.chunk, mloc, a.chunk, base, lm, best, bidx, sv,
+                    si);
+        else if (c == g)
+          fold<DIM>(own, a.npad, mloc, a.chunk, base, lm, best, bidx, sv,
+                    si);
+        else
+          fold<DIM>(a.pts + base, a.npad, a.mind2 + base, a.chunk, base, lm,
+                    best, bidx, sv, si);
+        if (tid == 0) {
+          cm = best;
+          cb = bidx;
+          a.cmax[c] = cm;
+          a.cbest[c] = cb;
+          ++visits;
+        }
+      }
+      if (tid == 0) {
+        __stcg(a.xv + par * a.nchunks + c, cm);
+        __stcg(a.xi + par * a.nchunks + c, cb);
+      }
+    }
+
+    grid_sync(a.bar, (unsigned long long)step * G);
+
+    // every CTA: global argmax over the chunk maxima. A chunk's argmax is
+    // its lowest lane and chunks hold increasing sorted indices, so the
+    // lowest index on a tie is the lowest chunk, then the lowest lane.
+    float best = -CUDART_INF_F;
+    int bidx = INT32_MAX;
+    for (int c = tid; c < a.nchunks; c += THREADS)
+      argmax_combine(best, bidx, __ldcg(a.xv + par * a.nchunks + c),
+                     __ldcg(a.xi + par * a.nchunks + c));
+    block_argmax(best, bidx, sv, si);
+    if (tid == 0) {
+      s_next = bidx;
+      if (g == 0) a.out[step] = bidx;
+    }
+    __syncthreads();
+    cur = s_next;
   }
+  if (tid == 0 && visits) atomicAdd(a.visits, visits);  // instrumentation
 }
+
+// SMs x resident CTAs per SM for fps_loop<DIM> (occupancy query).
+template <int DIM>
+cudaError_t coresident(int chunk, int *ctas) {
+  int dev, sms, per_sm, coop;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
+  if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(fps_loop<DIM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem_bytes<DIM>(chunk));
+  if (e == cudaSuccess)
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, fps_loop<DIM>, THREADS, smem_bytes<DIM>(chunk));
+  if (e == cudaSuccess) *ctas = sms * per_sm;
+  return e;
+}
+
+template <int DIM>
+cudaError_t run(FpsArgs a, cudaStream_t stream, long long *launched) {
+  int ctas = 0;
+  cudaError_t e = coresident<DIM>(a.chunk, &ctas);
+  if (e != cudaSuccess) return e;
+  if (ctas < 1) return cudaErrorCooperativeLaunchTooLarge;
+  const int G = a.nchunks < ctas ? a.nchunks : ctas;
+  void *args[] = {&a};
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void *>(fps_loop<DIM>),
+                                  dim3(G), dim3(THREADS), args,
+                                  smem_bytes<DIM>(a.chunk), stream);
+  if (e == cudaSuccess) e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return e;
+}
+
+using CoresidentFn = cudaError_t (*)(int, int *);
+using RunFn = cudaError_t (*)(FpsArgs, cudaStream_t, long long *);
+constexpr CoresidentFn CORESIDENT[MAX_DIM] = {
+    coresident<1>, coresident<2>, coresident<3>, coresident<4>,
+    coresident<5>, coresident<6>, coresident<7>, coresident<8>};
+constexpr RunFn RUN[MAX_DIM] = {run<1>, run<2>, run<3>, run<4>,
+                                run<5>, run<6>, run<7>, run<8>};
 
 }  // namespace
 
@@ -158,32 +308,34 @@ const char *flooder_cuda_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Run steps 1..n_samples-1 of the greedy loop on `stream`. The caller has
-// set mind2 = cmax = +inf, out[0] = *cur = the sorted start index and
-// *visits = 0. *launched is set to the number of kernel launches that were
-// enqueued without error. Returns 0 or the first CUDA launch error.
+// The number of K2 CTAs the current device holds at once for `dim`
+// coordinates and chunks of `chunk` points: SMs x resident blocks per SM
+// (occupancy query). Returns 0 or the CUDA error.
+int fps_coresident_ctas(int dim, int chunk, int *ctas) {
+  *ctas = 0;
+  if (dim < 1 || dim > MAX_DIM) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(CORESIDENT[dim - 1](chunk, ctas));
+}
+
+// Run steps 1..n_samples-1 of the greedy loop on `stream` as one
+// cooperative launch of min(nchunks, co-resident CTAs) CTAs. The caller
+// has set mind2 = cmax = +inf, out[0] = the sorted start index, *visits =
+// 0 and *bar = 0. *launched is set to the number of kernel launches
+// enqueued without error (0 for one sample). Returns 0 or the CUDA error;
+// a grid that cannot be co-resident is an error, never run another way.
 int fps_run(const float *pts, int dim, int npad, int chunk,
             const float *box_lo, const float *box_hi, int nchunks,
-            float *mind2, float *cmax, int *cbest, int *cur, int *out,
-            int n_samples, unsigned long long *visits, void *stream,
-            long long *launched) {
+            float *mind2, float *cmax, int *cbest, float *xv, int *xi,
+            int *out, int n_samples, unsigned long long *visits,
+            unsigned long long *bar, void *stream, long long *launched) {
   *launched = 0;
-  if (dim < 1 || dim > MAX_DIM) return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  for (int step = 1; step < n_samples; ++step) {
-    fps_update<<<nchunks, UPDATE_THREADS, 0, s>>>(
-        pts, dim, npad, chunk, box_lo, box_hi, nchunks, mind2, cmax, cbest,
-        cur, visits);
-    cudaError_t e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ++*launched;
-    fps_select<<<1, SELECT_THREADS, 0, s>>>(cmax, cbest, nchunks, step, out,
-                                            cur);
-    e = cudaGetLastError();
-    if (e != cudaSuccess) return static_cast<int>(e);
-    ++*launched;
-  }
-  return 0;
+  if (dim < 1 || dim > MAX_DIM || nchunks < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (n_samples < 2) return 0;
+  const FpsArgs a{pts,  npad, chunk, box_lo, box_hi, nchunks, mind2, cmax,
+                  cbest, xv,  xi,    out,    n_samples, visits, bar};
+  return static_cast<int>(
+      RUN[dim - 1](a, static_cast<cudaStream_t>(stream), launched));
 }
 
 }  // extern "C"

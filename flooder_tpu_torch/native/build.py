@@ -4,10 +4,10 @@ Two kinds of source, both in this package and nowhere else:
 
 - ``native/src/persistence.cpp``: the Z/2 boundary reduction, compiled
   with the host C++ compiler into a plain shared library.
-- ``csrc/<name>.cu``: the hand-written Hopper kernels, compiled with
-  ``nvcc`` for ``sm_90a`` into shared libraries with a plain C interface
-  and loaded with ``ctypes`` (no PyTorch headers, so a build takes
-  seconds).
+- ``csrc/<name>.cu``: the hand-written Hopper kernels (with the headers
+  ``csrc/*.cuh`` they share), compiled with ``nvcc`` for ``sm_90a`` into
+  shared libraries with a plain C interface and loaded with ``ctypes`` (no
+  PyTorch headers, so a build takes seconds).
 
 Everything is built at first use into ``build/flooder_tpu_torch/`` beside
 the package (git-ignored), never at import. A failed build raises with the
@@ -20,6 +20,7 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,7 +36,8 @@ CUDA_SRC_DIR = PKG_DIR / "csrc"
 
 # Kernels are built for Hopper only. -fmad=false keeps every a*b+c as a
 # rounded multiply and a rounded add, the same arithmetic as the plain
-# PyTorch versions, so the two agree bit for bit.
+# PyTorch versions, except where a kernel writes an FMA out (the flood
+# kernels' per-pair distance, csrc/flood_common.cuh).
 NVCC_FLAGS = [
     "-gencode=arch=compute_90a,code=sm_90a",
     "-std=c++17",
@@ -53,8 +55,10 @@ BUILD_LOG: Dict[str, str] = {}  # library name -> compiler output
 BUILD_SECONDS: Dict[str, float] = {}
 
 
-def _stale(lib: Path, src: Path) -> bool:
-    return not lib.exists() or lib.stat().st_mtime < src.stat().st_mtime
+def _stale(lib: Path, *srcs: Path) -> bool:
+    return not lib.exists() or any(
+        lib.stat().st_mtime < src.stat().st_mtime for src in srcs
+    )
 
 
 def _tmp_name(lib: Path) -> Path:
@@ -109,10 +113,12 @@ def cuda_library(name: str) -> Path:
 def build_cuda(names: Iterable[str]) -> None:
     """Compile the named ``csrc/*.cu`` kernels that are missing or stale,
     one ``nvcc`` process each, all started together."""
+    headers = sorted(CUDA_SRC_DIR.glob("*.cuh"))
     procs = []
     for name in names:
-        src, lib = cuda_source(name), cuda_library(name)
-        if not _stale(lib, src):
+        src = cuda_source(name)
+        lib = cuda_library(name)
+        if not _stale(lib, src, *headers):
             continue
         tmp = _tmp_name(lib)
         cmd = [_nvcc(), *NVCC_FLAGS, str(src)]
@@ -125,6 +131,29 @@ def build_cuda(names: Iterable[str]) -> None:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+KERNEL_NAMES = ("flood_min_kernel", "flood_stats_kernel", "fps_loop")
+
+
+def ptxas_kernels(text: str):
+    """(kernel, registers, spill-store bytes, static shared bytes) of each
+    entry function in a build's ``-Xptxas=-v`` output, with its template
+    arguments, e.g. ``("flood_min_kernel<3>", 72, 24, 22592)``."""
+    rows = []
+    for block in re.split(r"Compiling entry function '", text)[1:]:
+        name = block.split("'", 1)[0]
+        known = [k for k in KERNEL_NAMES if k in name]
+        if known:
+            args = re.findall(r"Li(\d+)E", name)
+            name = known[0] + (f"<{','.join(args)}>" if args else "")
+        regs = re.search(r"Used (\d+) registers", block)
+        spill = re.search(r"(\d+) bytes spill stores", block)
+        smem = re.search(r"(\d+) bytes smem", block)
+        rows.append((name, int(regs.group(1)) if regs else None,
+                     int(spill.group(1)) if spill else None,
+                     int(smem.group(1)) if smem else 0))
+    return rows
 
 
 def load_cuda(name: str) -> ctypes.CDLL:

@@ -405,7 +405,48 @@ def flood_pairs_reference(samples, witnesses, sub_lo, sub_hi, centers,
     return out, stats.reshape(n_blk * nr, 2)
 
 
-_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+def _check_flood_operands(operands, what: str):
+    """The checks K1's and K3's wrappers share: one CUDA device, contiguous
+    float32 operands with an int32 work-list, 1..KERNEL_MAX_DIM coordinates,
+    whole blocks of BS simplices, whole witness chunks, witnesses 16-byte
+    aligned. Raises on what the kernels do not take; returns (s_total, nr,
+    rt, dim, n_blk)."""
+    samples, witnesses = operands[0], operands[1]
+    floats, ints = operands[:9], operands[9:]
+    s_total, nr, rt, dim = samples.shape
+    n_blk = s_total // BS
+    for t in operands:
+        if t.device != samples.device:
+            raise ValueError(f"{what} operands must share one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError(f"{what} operands must be contiguous")
+    if any(t.dtype != torch.float32 for t in floats):
+        raise TypeError(f"{what} takes float32 operands")
+    if any(t.dtype != torch.int32 for t in ints):
+        raise TypeError(f"{what} takes an int32 work-list")
+    if not 1 <= dim <= KERNEL_MAX_DIM:
+        raise NotImplementedError(
+            f"the CUDA flood kernels take 1..{KERNEL_MAX_DIM} coordinates, "
+            f"got {dim}"
+        )
+    if s_total % BS or operands[9].numel() != n_blk + 1:
+        raise ValueError("simplex rows must fill whole blocks of BS")
+    if witnesses.shape[0] % WCHUNK or witnesses.shape[1] != dim:
+        raise ValueError("witnesses must be (whole chunks, dim)")
+    if witnesses.data_ptr() % 16:
+        raise ValueError(f"{what}: witnesses must be 16-byte aligned")
+    return s_total, nr, rt, dim, n_blk
+
+
+def _cta_order(blk_ptr: torch.Tensor) -> torch.Tensor:
+    """K1's launch order: the blocks by decreasing work-list length, ties
+    by block index (int32). CTA row i of the grid runs block ``order[i]``,
+    so the longest blocks start in the first wave."""
+    lens = blk_ptr[1:] - blk_ptr[:-1]
+    return torch.sort(-lens, stable=True).indices.to(torch.int32)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -429,38 +470,18 @@ def flood_min(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
     """K1: min d^2 from every sample to the in-ball witnesses.
 
     CPU tensors go to ``flood_pairs_reference``; CUDA tensors launch
-    ``csrc/flood.cu`` or raise. Returns (out (S, nr, rt), stats).
+    ``csrc/flood.cu`` (blocks longest work-list first) or raise. Returns
+    (out (S, nr, rt), stats).
     """
+    operands = (samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
+                tile_hi, ub2, blk_ptr, blk_chunks)
     if samples.device.type == "cpu":
-        return flood_pairs_reference(
-            samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
-            tile_hi, ub2, blk_ptr, blk_chunks,
-        )
+        return flood_pairs_reference(*operands)
     global LAUNCHES
-    s_total, nr, rt, dim = samples.shape
-    n_blk = s_total // BS
-    floats = (samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
-              tile_hi, ub2)
-    ints = (blk_ptr, blk_chunks)
-    for t in floats + ints:
-        if t.device != samples.device:
-            raise ValueError("flood_min operands must share one CUDA device")
-        if not t.is_contiguous():
-            raise ValueError("flood_min operands must be contiguous")
-    if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError("flood_min takes float32 operands")
-    if any(t.dtype != torch.int32 for t in ints):
-        raise TypeError("flood_min takes an int32 work-list")
-    if not 1 <= dim <= KERNEL_MAX_DIM:
-        raise NotImplementedError(
-            f"the CUDA flood kernel takes 1..{KERNEL_MAX_DIM} coordinates, "
-            f"got {dim}"
-        )
-    if s_total % BS or blk_ptr.numel() != n_blk + 1:
-        raise ValueError("simplex rows must fill whole blocks of BS")
-    if witnesses.shape[0] % WCHUNK or witnesses.shape[1] != dim:
-        raise ValueError("witnesses must be (whole chunks, dim)")
+    s_total, nr, rt, dim, n_blk = _check_flood_operands(operands,
+                                                        "flood_min")
     lib = _lib()
+    cta_order = _cta_order(blk_ptr)
     out = torch.empty((s_total, nr, rt), dtype=torch.float32,
                       device=samples.device)
     stats = torch.empty((n_blk * nr, 2), dtype=torch.int64,
@@ -469,16 +490,16 @@ def flood_min(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
     with torch.cuda.device(samples.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flood_min_launch(
-            *(t.data_ptr() for t in floats + ints), out.data_ptr(),
-            stats.data_ptr(), n_blk, nr, rt, dim, BS, WCHUNK // SUB, stream,
-            ctypes.byref(launched),
+            *(t.data_ptr() for t in operands), cta_order.data_ptr(),
+            out.data_ptr(), stats.data_ptr(), n_blk, nr, rt, dim, BS,
+            WCHUNK // SUB, stream, ctypes.byref(launched),
         )
-    LAUNCHES += launched.value
     if rc != 0:
         raise RuntimeError(
             "flood kernel launch failed: "
             + lib.flooder_cuda_error_string(rc).decode()
         )
+    LAUNCHES += launched.value
     return out, stats
 
 

@@ -36,7 +36,7 @@ import numpy as np
 import torch
 
 from ..utils.device import DeviceLike, as_tensor
-from .cuda_flood import BS, KERNEL_MAX_DIM, MASK, SUB, WCHUNK, _sqsum
+from .cuda_flood import BS, MASK, SUB, WCHUNK, _check_flood_operands, _sqsum
 
 # Kernel launches through ``flood_min_stats`` (CUDA tensors only), as
 # counted by ``flood_stats_launch`` while it enqueues them.
@@ -134,37 +134,13 @@ def flood_min_stats(samples, witnesses, sub_lo, sub_hi, centers, radii,
     stats (S, 3) int64: visited pairs, admitted sub-chunks, computed
     tiles).
     """
+    operands = (samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
+                tile_hi, ub2, blk_ptr, blk_chunks)
     if samples.device.type == "cpu":
-        return flood_stats_reference(
-            samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
-            tile_hi, ub2, blk_ptr, blk_chunks,
-        )
+        return flood_stats_reference(*operands)
     global LAUNCHES
-    s_total, nr, rt, dim = samples.shape
-    n_blk = s_total // BS
-    floats = (samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
-              tile_hi, ub2)
-    ints = (blk_ptr, blk_chunks)
-    for t in floats + ints:
-        if t.device != samples.device:
-            raise ValueError(
-                "flood_min_stats operands must share one CUDA device"
-            )
-        if not t.is_contiguous():
-            raise ValueError("flood_min_stats operands must be contiguous")
-    if any(t.dtype != torch.float32 for t in floats):
-        raise TypeError("flood_min_stats takes float32 operands")
-    if any(t.dtype != torch.int32 for t in ints):
-        raise TypeError("flood_min_stats takes an int32 work-list")
-    if not 1 <= dim <= KERNEL_MAX_DIM:
-        raise NotImplementedError(
-            f"the CUDA flood-stats kernel takes 1..{KERNEL_MAX_DIM} "
-            f"coordinates, got {dim}"
-        )
-    if s_total % BS or blk_ptr.numel() != n_blk + 1:
-        raise ValueError("simplex rows must fill whole blocks of BS")
-    if witnesses.shape[0] % WCHUNK or witnesses.shape[1] != dim:
-        raise ValueError("witnesses must be (whole chunks, dim)")
+    s_total, nr, rt, dim, _ = _check_flood_operands(operands,
+                                                    "flood_min_stats")
     lib = _lib()
     out = torch.empty((s_total, nr, rt), dtype=torch.float32,
                       device=samples.device)
@@ -174,7 +150,7 @@ def flood_min_stats(samples, witnesses, sub_lo, sub_hi, centers, radii,
     with torch.cuda.device(samples.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flood_stats_launch(
-            *(t.data_ptr() for t in floats + ints), out.data_ptr(),
+            *(t.data_ptr() for t in operands), out.data_ptr(),
             stats.data_ptr(), s_total, nr, rt, dim, BS, WCHUNK // SUB,
             stream, ctypes.byref(launched),
         )

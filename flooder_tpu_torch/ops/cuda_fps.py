@@ -2,10 +2,10 @@
 
 Counterpart of ``flooder_tpu.ops.pallas_fps``. ``_fps_prepare`` lays the
 cloud out as the TPU kernel's did (Hilbert sort, 8192-point chunks with
-bounding boxes), as torch ops; ``csrc/fps.cu`` runs the greedy loop with
-the same chunk skip and tie rule. The wrapper launches the kernel for a
-CUDA tensor and uses the plain version ``ops/fps.py`` for a CPU tensor,
-and nothing else.
+bounding boxes), as torch ops; ``csrc/fps.cu`` runs the whole greedy loop
+as one cooperative launch with the same chunk skip and tie rule. The
+wrapper launches the kernel for a CUDA tensor and uses the plain version
+``ops/fps.py`` for a CPU tensor, and nothing else.
 """
 
 from __future__ import annotations
@@ -21,8 +21,8 @@ from .fps import farthest_point_sampling
 FPS_CHUNK = 8192
 KERNEL_MAX_DIM = 8
 
-# CUDA launches of the update and select kernels, as counted by ``fps_run``
-# while it enqueues them (2 * (n_samples - 1) per FPS run).
+# CUDA launches of the greedy-loop kernel, as counted by ``fps_run`` while
+# it enqueues them (1 per FPS run of at least 2 samples).
 LAUNCHES = 0
 # Chunk visits of the last kernel run (device int64 counter).
 last_visits = None
@@ -72,12 +72,36 @@ def _lib():
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
         + [ctypes.c_void_p] * 2
         + [ctypes.c_int]
-        + [ctypes.c_void_p] * 5
-        + [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p]
+        + [ctypes.c_void_p] * 6
+        + [ctypes.c_int]
+        + [ctypes.c_void_p] * 4
     )
+    lib.fps_coresident_ctas.restype = ctypes.c_int
+    lib.fps_coresident_ctas.argtypes = [ctypes.c_int, ctypes.c_int,
+                                        ctypes.c_void_p]
     lib.flooder_cuda_error_string.restype = ctypes.c_char_p
     lib.flooder_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def _raise_on(lib, rc: int, what: str):
+    if rc != 0:
+        raise RuntimeError(
+            f"{what} failed: " + lib.flooder_cuda_error_string(rc).decode()
+        )
+
+
+def coresident_ctas(dim: int, device=None) -> int:
+    """How many CTAs of the kernel for ``dim`` coordinates the card holds
+    at once (SMs x resident blocks per SM, by the occupancy query that
+    ``fps_run`` sizes its grid with): the kernel's grid is min(chunks,
+    this)."""
+    lib = _lib()
+    ctas = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        rc = lib.fps_coresident_ctas(dim, FPS_CHUNK, ctypes.byref(ctas))
+    _raise_on(lib, rc, "fps occupancy query")
+    return ctas.value
 
 
 def fps_kernel_run(prep, n_samples: int) -> torch.Tensor:
@@ -92,7 +116,9 @@ def fps_kernel_run(prep, n_samples: int) -> torch.Tensor:
     mind2 = torch.full((npad,), float("inf"), device=dev)
     cmax = torch.full((nchunks,), float("inf"), device=dev)
     cbest = torch.zeros(nchunks, dtype=torch.int32, device=dev)
-    cur = sorted_start.clone()
+    xv = torch.empty(2 * nchunks, device=dev)
+    xi = torch.empty(2 * nchunks, dtype=torch.int32, device=dev)
+    bar = torch.zeros(1, dtype=torch.int64, device=dev)
     out = torch.empty(n_samples, dtype=torch.int32, device=dev)
     out[:1] = sorted_start
     visits = torch.zeros(1, dtype=torch.int64, device=dev)
@@ -102,15 +128,12 @@ def fps_kernel_run(prep, n_samples: int) -> torch.Tensor:
         rc = lib.fps_run(
             pts_t.data_ptr(), dim, npad, FPS_CHUNK, box_lo.data_ptr(),
             box_hi.data_ptr(), nchunks, mind2.data_ptr(), cmax.data_ptr(),
-            cbest.data_ptr(), cur.data_ptr(), out.data_ptr(), n_samples,
-            visits.data_ptr(), stream, ctypes.byref(launched),
+            cbest.data_ptr(), xv.data_ptr(), xi.data_ptr(), out.data_ptr(),
+            n_samples, visits.data_ptr(), bar.data_ptr(), stream,
+            ctypes.byref(launched),
         )
     LAUNCHES += launched.value
-    if rc != 0:
-        raise RuntimeError(
-            "fps kernel launch failed: "
-            + lib.flooder_cuda_error_string(rc).decode()
-        )
+    _raise_on(lib, rc, "fps kernel launch")
     last_visits = visits
     return out
 

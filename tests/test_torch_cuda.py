@@ -48,9 +48,23 @@ def test_fps_kernel_matches_plain(cuda_device, n, n_lms, dim):
     pts = torch.from_numpy(x).to(cuda_device)
     before = cuda_fps.LAUNCHES
     got = cuda_fps.cuda_farthest_point_sampling(pts, n_lms, 7)
-    assert cuda_fps.LAUNCHES == before + 2 * (n_lms - 1)  # update + select
+    assert cuda_fps.LAUNCHES == before + 1  # the whole loop, one launch
     want = farthest_point_sampling(pts, n_lms, 7)
     assert_same_greedy_selection(x, got.cpu().numpy(), want.cpu().numpy(), 7)
+
+
+def test_fps_kernel_with_several_chunks_per_cta(cuda_device):
+    """More chunks than co-resident CTAs: every CTA owns two chunks or
+    more, past its first (shared-memory) one."""
+    ctas = cuda_fps.coresident_ctas(3)
+    n = cuda_fps.FPS_CHUNK * (ctas + 5)
+    x = np.random.default_rng(17).random((n, 3)).astype(np.float32)
+    pts = torch.from_numpy(x).to(cuda_device)
+    before = cuda_fps.LAUNCHES
+    got = cuda_fps.cuda_farthest_point_sampling(pts, 48, 11)
+    assert cuda_fps.LAUNCHES == before + 1
+    want = farthest_point_sampling(pts, 48, 11)
+    assert_same_greedy_selection(x, got.cpu().numpy(), want.cpu().numpy(), 11)
 
 
 def test_fps_single_sample_launches_nothing(cuda_device):
@@ -61,9 +75,10 @@ def test_fps_single_sample_launches_nothing(cuda_device):
     assert cuda_fps.LAUNCHES == before
 
 
-def _dim3_operands(device, n=20000, n_lms=100, tight=True, num_rand=None):
+def _dim3_operands(device, n=20000, n_lms=100, tight=True, num_rand=None,
+                   shift=0.0, radius_scale=1.0):
     X = ft.generate_swiss_cheese_points(n, seed=3, device=device)[0]
-    L = ft.generate_landmarks(X, n_lms, start_idx=0, device=device)
+    L = ft.generate_landmarks(X, n_lms, start_idx=0, device=device) + shift
     eng = cuda_flood.CudaFloodEngine(X)
     stree = ft.topology.DelaunayComplex(
         L.cpu().numpy().astype(np.float64)
@@ -71,6 +86,7 @@ def _dim3_operands(device, n=20000, n_lms=100, tight=True, num_rand=None):
     tets = torch.as_tensor(stree._verts[3], device=device).long()
     verts = L[tets]
     centers, radii = ft.ops.flood.simplex_bounding_balls(verts)
+    radii = radii * radius_scale
     order = torch.as_tensor(eng.order(centers), device=device)
     if num_rand is None:
         from flooder_tpu_torch.core import _grid_host
@@ -97,6 +113,28 @@ def test_flood_kernel_matches_plain(cuda_device, tight, num_rand):
     assert (out_k[~masked_k] - out_p[~masked_p]).abs().max().item() <= 1e-6
     assert torch.equal(stats_k, stats_p)
     assert stats_k[:, 0].sum().item() > 0
+
+
+def test_flood_kernel_matches_plain_where_balls_cut_subchunks(cuda_device):
+    """Landmarks off the cloud, balls of half the radius (as in
+    test_torch_flood.py::test_plain_kernel_matches_pallas_interpret): many
+    admitted sub-chunks are partly out of the ball, so the compacted inner
+    loop runs over partly masked tiles."""
+    ops = _dim3_operands(cuda_device, tight=False, num_rand=300, shift=0.05,
+                         radius_scale=0.5)
+    out_k, stats_k = cuda_flood.flood_min(*ops)
+    out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
+    masked_k = out_k >= cuda_flood._MASKED_D2
+    assert torch.equal(masked_k, out_p >= cuda_flood._MASKED_D2)
+    assert not masked_k.all()
+    assert (out_k[~masked_k] - out_p[~masked_k]).abs().max().item() <= 1e-6
+    assert torch.equal(stats_k, stats_p)
+    units, inball = cuda_flood.kernel_operations(stats_k)
+    rt = ops[0].shape[2]
+    assert 0 < inball < units * cuda_flood.SUB * rt  # partly masked units
+    out_3, stats_3 = cuda_flood_stats.flood_min_stats(*ops)
+    assert torch.equal(out_3, out_k)
+    assert stats_3[:, cuda_flood_stats.COL_TILES].sum().item() == units
 
 
 @pytest.mark.parametrize("tight,num_rand", [(True, None), (False, 300)])
@@ -160,7 +198,7 @@ def test_main_path_goes_through_both_kernels(cuda_device):
     f0, k0 = cuda_fps.LAUNCHES, cuda_flood.LAUNCHES
     st = ft.flood_complex(X, 200, return_simplex_tree=True)
     st.compute_persistence()
-    assert cuda_fps.LAUNCHES == f0 + 2 * (200 - 1)
+    assert cuda_fps.LAUNCHES == f0 + 1
     assert cuda_flood.LAUNCHES == k0 + 1
     vals = np.concatenate(st._filt)
     assert np.isfinite(vals).all()

@@ -206,3 +206,77 @@ def test_plain_kernel_matches_pallas_interpret(tight):
     np.testing.assert_allclose(got[~inf], want[~inf], atol=1e-5)
     units, pairs = cf.kernel_operations(eng_t.last_stats)
     assert units > 0 and pairs > 0
+
+
+@pytest.mark.parametrize(
+    "lens",
+    [np.random.default_rng(5).integers(0, 6, 50), np.full(9, 4), []],
+    ids=["ties", "all-equal", "no-block"],
+)
+def test_cta_order_runs_longest_worklist_first(lens):
+    """K1's launch order: a permutation of the blocks, by decreasing
+    work-list length, ties by block index; with grid row i running block
+    order[i] on every tile, each (block, tile) CTA runs exactly once."""
+    lens = np.asarray(lens, dtype=np.int64)
+    blk_ptr = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                           dtype=torch.int32)
+    order = cf._cta_order(blk_ptr)
+    assert order.dtype == torch.int32
+    o = order.numpy()
+    np.testing.assert_array_equal(
+        o, sorted(range(len(lens)), key=lambda b: (-lens[b], b))
+    )
+    nr = 3
+    ctas = (o[:, None].astype(np.int64) * nr + np.arange(nr)).reshape(-1)
+    np.testing.assert_array_equal(np.sort(ctas), np.arange(len(lens) * nr))
+
+
+def _meta_operands(dim=3, s_total=8):
+    f = lambda *shape: torch.zeros(shape, device="meta")  # noqa: E731
+    return [f(s_total, 1, 128, dim), f(2048, dim), f(4, dim), f(4, dim),
+            f(s_total, dim), f(s_total), f(s_total, 1, dim),
+            f(s_total, 1, dim), f(s_total, 1),
+            torch.zeros(s_total // cf.BS + 1, dtype=torch.int32,
+                        device="meta"),
+            torch.zeros(1, dtype=torch.int32, device="meta")]
+
+
+@pytest.mark.parametrize("wrapper", ["flood_min", "flood_min_stats"])
+@pytest.mark.parametrize(
+    "bad,error",
+    [("float64", TypeError), ("int64", TypeError),
+     ("dim5", NotImplementedError), ("rows", ValueError),
+     ("witnesses", ValueError)],
+)
+def test_flood_wrappers_share_one_operand_check(monkeypatch, wrapper, bad,
+                                                error):
+    """K1's and K3's wrappers reject what the kernels do not take, through
+    the one ``_check_flood_operands``, before any kernel is loaded."""
+    from flooder_tpu_torch.ops import cuda_flood_stats as cfs
+
+    def no_kernel():
+        raise AssertionError("a kernel library was loaded")
+
+    monkeypatch.setattr(cf, "_lib", no_kernel)
+    monkeypatch.setattr(cfs, "_lib", no_kernel)
+    ops = _meta_operands(dim=5 if bad == "dim5" else 3,
+                         s_total=12 if bad == "rows" else 8)
+    if bad == "float64":
+        ops[0] = ops[0].double()
+    elif bad == "int64":
+        ops[-1] = ops[-1].long()
+    elif bad == "witnesses":
+        ops[1] = ops[1][:2000]  # not whole chunks
+    fn = cf.flood_min if wrapper == "flood_min" else cfs.flood_min_stats
+    with pytest.raises(error):
+        fn(*ops)
+
+
+def test_operand_check_wants_aligned_witnesses():
+    ops = [torch.zeros_like(t, device="cpu") for t in _meta_operands()]
+    s_total, nr, rt, dim, n_blk = cf._check_flood_operands(ops, "k")
+    assert (s_total, nr, rt, dim, n_blk) == (8, 1, 128, 3, 1)
+    storage = torch.zeros(2048 * 3 + 1)
+    ops[1] = storage[1:].reshape(2048, 3)  # 4 bytes past an aligned start
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        cf._check_flood_operands(ops, "k")
