@@ -20,10 +20,11 @@ more chunks than the card holds CTAs at once, so that CTAs own several
 chunks.
 
 The kernel-stats path runs kernel K3 (``csrc/flood_stats.cu``): K3 is held
-against its plain version on the tool's default 100k x 300 scene; on the
-main path's dimension-3 operands it is held against K1 (the same output,
-and its computed tiles equal K1's admitted units) and against its plain
-version on 64 whole blocks (all witnesses, exact counters); and the tool
+against its plain version and K1 on the tool's default 100k x 300 scene; on
+the main path's dimension-3 operands it is held against K1 (the same
+output, and its computed tiles equal K1's admitted units) and against its
+plain version on 64 whole blocks (all witnesses, exact counters), and timed
+beside K1 and its issue floor at both shapes; and the tool
 (``python -m flooder_tpu_torch.tools.kernel_stats``) is driven at 1M x 1k
 with the launch counters set to 0 just before it and read just after.
 
@@ -168,6 +169,14 @@ def flood_d2_diff(out_a, out_b, what):
     if err > 1e-6:
         raise AssertionError(f"{what}: max |d2 diff| {err} > 1e-6")
     return err
+
+
+def issue_floor_ms(inball_pairs, sms, clock_mhz):
+    """Derived issue floor of K1 and K3: FLOOD_INSTR_PER_PAIR fp32
+    instructions per in-ball pair over the card's fp32 lanes at the max SM
+    clock."""
+    return 1e3 * FLOOD_INSTR_PER_PAIR * inball_pairs / (
+        sms * FP32_LANES_PER_SM * clock_mhz * 1e6)
 
 
 def flood_bound_ms(operands, inball_pairs):
@@ -363,8 +372,7 @@ def main():
     k1_bound, k1_by = flood_bound_ms(ops, inball)
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     clock_mhz = float(card_line("clocks.max.sm").split()[0])
-    k1_floor = 1e3 * FLOOD_INSTR_PER_PAIR * inball / (
-        sms * FP32_LANES_PER_SM * clock_mhz * 1e6)
+    k1_floor = issue_floor_ms(inball, sms, clock_mhz)
     log(f"K1 at 1M x 1k: {units} admitted (simplex, tile, sub-chunk) units, "
         f"{units * cuda_flood.SUB * rt} pairs without compaction, {inball} "
         f"in-ball pairs; kernel {k1_ms:.3f} ms, bound {k1_bound:.3f} ms "
@@ -417,14 +425,29 @@ def main():
     k3_small_ms = cuda_ms(
         lambda: cuda_flood_stats.flood_min_stats(*small.operands), 5
     )
+    # K1 on the same scene: the same output, and its in-ball pairs, which
+    # K3 computes too, give K3's bound and issue floor here
+    out_1, stats_1 = cuda_flood.flood_min(*small.operands)
+    if not torch.equal(out_k, out_1):
+        raise AssertionError("K3 differs from K1 at 100k x 300")
+    units_small, inball_small = cuda_flood.kernel_operations(stats_1)
+    if stats_k[:, cuda_flood_stats.COL_TILES].sum().item() != units_small:
+        raise AssertionError("K3's tiles differ from K1's units at 100k x "
+                             "300")
+    k3_small_bound, k3_small_by = flood_bound_ms(small.operands, inball_small)
+    k1_small_ms = cuda_ms(lambda: cuda_flood.flood_min(*small.operands), 5)
+    k3_small_floor = issue_floor_ms(inball_small, sms, clock_mhz)
     log(f"K3 flood_stats {K3_PLAIN_POINTS} x {K3_PLAIN_LANDMARKS} "
         f"({small.num_simplices} simplices, "
         f"{small.operands[-1].numel()} pairs): max |d2 diff| {k3_err} "
         f"against the plain version, inf in the same places, counters "
-        f"equal (column sums {stats_k.sum(0).tolist()}); kernel "
-        f"{k3_small_ms:.3f} ms, plain {k3_plain:.1f} ms (host clock, one "
-        f"run)")
-    del small, out_k, stats_k, out_p, stats_p
+        f"equal (column sums {stats_k.sum(0).tolist()}); output == K1's, "
+        f"tiles == K1's {units_small} units, {inball_small} in-ball pairs; "
+        f"kernel {k3_small_ms:.3f} ms (K1 {k1_small_ms:.3f} ms), bound "
+        f"{k3_small_bound:.3f} ms ({k3_small_by}), issue floor "
+        f"{k3_small_floor:.3f} ms (derived); plain {k3_plain:.1f} ms (host "
+        f"clock, one run)")
+    del small, out_k, stats_k, out_p, stats_p, out_1, stats_1
 
     # ---- K3 at the main path's shapes, against K1 ---------------------------
     out_k3, stats_k3 = cuda_flood_stats.flood_min_stats(*ops)
@@ -472,11 +495,16 @@ def main():
     del sliced, rows, out_p, stats_p, out_s, stats_s
     k3_ms = cuda_ms(lambda: cuda_flood_stats.flood_min_stats(*ops), 5)
     k3_bound, k3_by = flood_bound_ms(ops, inball)
+    nr = ops[0].shape[1]
+    k3_dyn_smem = (nr * rt + 8 * nr) * 4
     log(f"K3 at 1M x 1k: max |d2 diff| {k3_vs_k1} against K1's output; "
         f"{k3_tiles} computed tiles == K1's {units} admitted units; "
         f"{k3_subchunks} admitted (simplex, sub-chunk) units; {k3_visited} "
         f"visited pairs == the work-list's; kernel {k3_ms:.3f} ms (K1 "
-        f"{k1_ms:.3f} ms), bound {k3_bound:.3f} ms ({k3_by})")
+        f"{k1_ms:.3f} ms, ratio {k3_ms / k1_ms:.3f}), bound "
+        f"{k3_bound:.3f} ms ({k3_by}), issue floor {k1_floor:.3f} ms "
+        f"(derived, K1's in-ball pairs); dynamic smem {k3_dyn_smem} bytes a "
+        f"CTA")
     del out_k1, out_k3, stats_k3
 
     # ---- the kernel-stats tool at 1M x 1k -----------------------------------
@@ -513,6 +541,8 @@ def main():
             "ms": k1_ms, "plain_ms": plain_ms, "bound_ms": k1_bound,
             "bound_by": k1_by, "library_ms": None, "library_note": no_lib,
             "admitted_units": units, "inball_pairs": inball,
+            "ms_at_100k_x_300": k1_small_ms,
+            "bound_ms_at_100k_x_300": k3_small_bound,
         },
         {
             "name": "fps", "route": "cuda",
@@ -537,6 +567,7 @@ def main():
             "library_ms": None, "library_note": no_lib,
             "plain_shape": f"{K3_PLAIN_POINTS} x {K3_PLAIN_LANDMARKS}",
             "ms_at_plain_shape": k3_small_ms,
+            "bound_ms_at_plain_shape": k3_small_bound,
             "plain_check_blocks": len(blocks),
             "plain_check_pairs": slice_pairs,
             "plain_ms_on_blocks": k3_slice_plain,

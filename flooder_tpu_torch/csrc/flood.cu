@@ -43,7 +43,8 @@
 //    all 512. The padding slots hold out-of-ball witnesses (at 3e18), and a
 //    unit with no in-ball witness folds in the one value such a witness
 //    gives: min is exact, so the output is the min over all 512 bit for
-//    bit (K3, which does not compact, gives the same).
+//    bit. The fetch, the compaction and the inner loop are K3's too
+//    (flood_common.cuh).
 //  - One barrier per staging instead of seven: witnesses are staged into a
 //    double-buffered tile; each thread fetches its own slots of the next
 //    candidate sub-chunk with cp.async while the CTA computes, so raw data
@@ -69,63 +70,12 @@
 
 namespace {
 
-using flood::MASK;
+using flood::NSEG;
 using flood::SUB;
 
-constexpr int SEGW = 128;         // witnesses per staging segment (4 a lane)
-constexpr int NSEG = SUB / SEGW;  // segments per sub-chunk
-constexpr int UNROLL = 4;         // inner-loop unroll; counts round up to it
-constexpr int MAX_RT = 512;       // samples per tile, at most
-constexpr int SPT = 4;            // samples per thread
+constexpr int MAX_RT = 512;  // samples per tile, at most
+constexpr int SPT = 4;       // samples per thread
 constexpr int MAX_WARPS = MAX_RT / SPT / 32;
-constexpr unsigned FULL = 0xffffffffu;
-
-__device__ __forceinline__ void cp_async16(void *smem, const void *gmem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(gmem)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-// Squared distance from the ball centre c to the sub-chunk's box (skip 1).
-template <int DIM>
-__device__ __forceinline__ float near2(const float *sub_lo,
-                                       const float *sub_hi, int sub,
-                                       const float *c) {
-  float n2 = 0.f;
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) {
-    const float lo = sub_lo[(size_t)sub * DIM + d];
-    const float hi = sub_hi[(size_t)sub * DIM + d];
-    n2 = flood::sq_add(n2, __fsub_rn(fminf(fmaxf(c[d], lo), hi), c[d]));
-  }
-  return n2;
-}
-
-// Squared gap between the sub-chunk's box and the tile's sample box, both
-// ball-local (skip 2).
-template <int DIM>
-__device__ __forceinline__ float gap2(const float *sub_lo,
-                                      const float *sub_hi, int sub,
-                                      const float *c, const float *tlo,
-                                      const float *thi) {
-  float g2 = 0.f;
-#pragma unroll
-  for (int d = 0; d < DIM; ++d) {
-    const float blo = __fsub_rn(sub_lo[(size_t)sub * DIM + d], c[d]);
-    const float bhi = __fsub_rn(sub_hi[(size_t)sub * DIM + d], c[d]);
-    const float g =
-        fmaxf(fmaxf(__fsub_rn(blo, thi[d]), __fsub_rn(tlo[d], bhi)), 0.f);
-    g2 = flood::sq_add(g2, g);
-  }
-  return g2;
-}
 
 template <int DIM>
 __global__ void __launch_bounds__(MAX_RT / SPT) flood_min_kernel(
@@ -155,22 +105,9 @@ __global__ void __launch_bounds__(MAX_RT / SPT) flood_min_kernel(
   const int r = blockIdx.x - (blockIdx.x / nr) * nr;
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
-  const unsigned lanes_below = (1u << lane) - 1u;
   const int c0 = blk_ptr[b], c1 = blk_ptr[b + 1];
   long long units = 0, inball = 0;
   int wb = 0;  // the staging buffer no thread reads
-
-  // each warp fetches its segments of sub-chunk `sub` into raw
-  auto fetch = [&](int sub) {
-    cp_async_wait_all();  // no older copy may land after this one
-    for (int seg = warp; seg < NSEG; seg += nw) {
-      const size_t off = (size_t)(seg * SEGW + 4 * lane) * DIM;
-      const float *src = witnesses + (size_t)sub * SUB * DIM + off;
-#pragma unroll
-      for (int j = 0; j < DIM; ++j) cp_async16(raw + off + 4 * j, src + 4 * j);
-    }
-    cp_async_commit();
-  };
 
   for (int si = 0; si < bs; ++si) {
     const int s = b * bs + si;
@@ -205,7 +142,8 @@ __global__ void __launch_bounds__(MAX_RT / SPT) flood_min_kernel(
           q = 0;
           ++p;
         }
-        if (near2<DIM>(sub_lo, sub_hi, sub, c) <= r2) return sub;  // skip 1
+        if (flood::near2<DIM>(sub_lo, sub_hi, sub, c) <= r2)  // skip 1
+          return sub;
       }
       return -1;
     };
@@ -218,43 +156,24 @@ __global__ void __launch_bounds__(MAX_RT / SPT) flood_min_kernel(
     while (cand >= 0) {
       if (!dirty) {
         // pm is exact: test before staging
-        if (!(gap2<DIM>(sub_lo, sub_hi, cand, c, tlo, thi) <= fminf(pm, ub))) {
+        if (!(flood::gap2<DIM>(sub_lo, sub_hi, cand, c, tlo, thi) <=
+              fminf(pm, ub))) {
           cand = next_ball();
           fetched = false;
           continue;
         }
-        if (!fetched) fetch(cand);
+        if (!fetched)
+          flood::fetch_raw<DIM>(raw, witnesses, cand, warp, nw, lane);
       }
 
       // stage cand into wsh[wb], compacted per segment
-      cp_async_wait_all();
-      int total = 0;
-      for (int seg = warp; seg < NSEG; seg += nw) {
-        const float *own = raw + (size_t)(seg * SEGW + 4 * lane) * DIM;
-        float4 yl[4];
-        bool in[4];
-        int below = 0, cnt = 0;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          in[i] = flood::ball_local<DIM>(own + i * DIM, c, r2, yl[i]);
-          const unsigned bal = __ballot_sync(FULL, in[i]);
-          below += __popc(bal & lanes_below);
-          cnt += __popc(bal);
-        }
-        float4 *dst = wsh[wb] + seg * SEGW;
-        int nin = below, nout = 4 * lane - below;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          // in-ball witnesses to the front, the others from the back
-          const int pos = in[i] ? nin++ : SEGW - 1 - nout++;
-          dst[pos] = in[i] ? yl[i] : flood::masked<DIM>();
-        }
-        if (lane == 0) segcnt[wb][seg] = cnt;
-      }
+      flood::stage_compacted<DIM>(raw, c, r2, wsh[wb], segcnt[wb], warp, nw,
+                                  lane);
       if (dirty && lane == 0) wmax[wb][warp] = wm;
       // fetch the next ball candidate while this one is tested and computed
       const int nxt = next_ball();
-      if (nxt >= 0) fetch(nxt);
+      if (nxt >= 0)
+        flood::fetch_raw<DIM>(raw, witnesses, nxt, warp, nw, lane);
       __syncthreads();  // publishes wsh[wb], segcnt[wb] and wmax[wb]
 
       if (dirty) {
@@ -262,35 +181,18 @@ __global__ void __launch_bounds__(MAX_RT / SPT) flood_min_kernel(
         for (int w = 1; w < nw; ++w) pm = fmaxf(pm, wmax[wb][w]);
         dirty = false;
       }
-      if (gap2<DIM>(sub_lo, sub_hi, cand, c, tlo, thi) <= fminf(pm, ub)) {
+      if (flood::gap2<DIM>(sub_lo, sub_hi, cand, c, tlo, thi) <=
+          fminf(pm, ub)) {
         // an admitted unit (skip 2 passed)
-        for (int seg = 0; seg < NSEG; ++seg) {
-          const int n = segcnt[wb][seg];
-          total += n;
-          const int n_pad = (n + UNROLL - 1) / UNROLL * UNROLL;
-          const float4 *ys = wsh[wb] + seg * SEGW;
-#pragma unroll 4
-          for (int w = 0; w < n_pad; ++w) {
-            const float4 yv = ys[w];
-#pragma unroll
-            for (int k = 0; k < SPT; ++k)
-              acc[k] = fminf(acc[k], flood::pair_d2<DIM>(yv, x[k]));
-          }
-        }
-        if (total == 0) {
-          // every witness is out of the ball: they all give this value
-          const float4 m = flood::masked<DIM>();
-#pragma unroll
-          for (int k = 0; k < SPT; ++k)
-            acc[k] = fminf(acc[k], flood::pair_d2<DIM>(m, x[k]));
-        }
+        const int total =
+            flood::min_over_staged<DIM, SPT>(wsh[wb], segcnt[wb], x, acc);
         units += 1;
         inball += total;
         wm = acc[0];
 #pragma unroll
         for (int k = 1; k < SPT; ++k) wm = fmaxf(wm, acc[k]);
         for (int off = 16; off > 0; off >>= 1)
-          wm = fmaxf(wm, __shfl_xor_sync(FULL, wm, off));
+          wm = fmaxf(wm, __shfl_xor_sync(flood::FULL, wm, off));
         dirty = true;
         wb ^= 1;
       }

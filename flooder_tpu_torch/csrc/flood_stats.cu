@@ -24,25 +24,48 @@
 //
 // Design: one CTA per simplex, because test 2 needs a max over all of a
 // simplex's samples and K1's (block, tile) CTAs never see a whole simplex.
-// The CTA keeps the simplex's nr x rt running mins and each tile's max in
-// shared memory (20 KB at nr 10, rt 512), walks its block's chunk list,
-// stages every unit with a computed tile in shared memory once (out-of-ball
-// witnesses moved to 3e18), runs the admitted tiles one after another with
-// the samples in registers, and writes its output and counters once. The
-// simplices of a block share only their pair list, so nothing is carried
-// between CTAs: no atomics, no aliased accumulator, no launch segments, no
-// lane-masked counter rows, and the witnesses keep their (W, dim) layout.
+// The CTA keeps the simplex's nr x rt running mins in shared memory, walks
+// its block's chunk list and writes its output and counters once. Simplices
+// share only their block's pair list, so nothing is carried between CTAs.
+// On top of that it is built as K1 is (flood.cu), with K1's own staging
+// and inner loop (flood_common.cuh):
+//  - Compaction: an admitted sub-chunk is staged once, its in-ball
+//    witnesses at the front of each segment, and every computed tile of
+//    the unit runs over the in-ball count only.
+//  - One barrier per computed unit. Each warp publishes its max of a
+//    computed tile's running mins (wmax, per tile and warp), and the
+//    staging barrier that every unit needs anyway makes them visible; tests
+//    2 and 3 take the max over a tile's warps. wmax is double-buffered: a
+//    unit's tests read the published buffer while its computed tiles write
+//    the other, and the tiles it does not compute are copied across, so no
+//    thread's test can see a max its unit is still changing. The tests need
+//    the maxima after the last computed unit, so the first ball candidate
+//    after a computed unit is staged before it is tested; a candidate that
+//    is staged and then rejected costs its staging and barrier and is not
+//    counted.
+//  - Pipelined staging: the next ball candidate's raw witnesses are fetched
+//    with cp.async while the current unit computes, into a double-buffered
+//    staged tile.
+//  - Longest work-list first: CTA i runs simplex sim_order[i] (the caller
+//    orders the blocks by work-list length, K1's order, and keeps each
+//    block's simplices together), so long lists do not land in the last
+//    wave. The counters are per simplex, so the order changes no output.
+//  - Tile groups: a CTA holds G = 2 groups of rt / 4 threads that share
+//    the staged sub-chunk; a unit's computed tiles go to the groups in
+//    turn. A group's warps own a tile's running mins for the unit, so the
+//    groups need no barrier among themselves. With one group the longest
+//    simplices run their tiles one after another (on an H100, 10.9 against
+//    8.4 ms at 100k x 300, about 1 % slower at 1M x 1k); four groups were
+//    no faster (PERF.md).
 //
-// Arithmetic: K1's difference form, through the device functions K1 uses
-// (flood_common.cuh), so K3 and K1 agree bit for bit; both are within an
-// ulp or so of their plain PyTorch versions (the per-pair FMA), and every
-// test is explicitly rounded as there (built with -fmad=false).
-//
-// What bounds it: fp32 instruction issue, as K1: 7 per (sample, witness)
-// pair of the computed tiles, over all 512 witnesses of a staged sub-chunk
-// (K3 does not compact them). Bytes are far below: the samples of a tile
-// are read once per computed tile from L2, and the witnesses once per
-// admitted unit.
+// What bounds it: fp32 instruction issue, as K1: 7 per (sample, in-ball
+// witness) pair of the computed tiles, the same pairs K1 computes, in the
+// same inner loop (SASS). Bytes are far below: a computed tile's samples
+// are read from L2, the witnesses once per admitted unit. What stays
+// between the kernel and that floor is the walk of the list, the per-unit
+// tests, staging, barrier waits and the tail of the last wave: without the
+// launch order the longest simplices finish last and the kernel takes
+// about 1.2x as long. Measured times beside the floor: PERF.md.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -52,30 +75,17 @@
 
 namespace {
 
+using flood::NSEG;
 using flood::SUB;
-using flood::sq_add;
 constexpr int SPT = 4;  // samples per thread
-constexpr int MAX_THREADS = 512 / SPT;
-
-// Max over the block (every thread gets it). Ends in a barrier, so `red`
-// may be reused right after.
-__device__ __forceinline__ float block_max(float v, float *red) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  const int nwarps = (blockDim.x + 31) >> 5;
-  float m = red[0];
-  for (int w = 1; w < nwarps; ++w) m = fmaxf(m, red[w]);
-  __syncthreads();
-  return m;
-}
+constexpr int G = 2;    // tile groups a CTA
+constexpr int MAX_RT = 512;
+constexpr int MAX_GROUP_WARPS = MAX_RT / SPT / 32;
 
 template <int DIM>
-__global__ void __launch_bounds__(MAX_THREADS) flood_stats_kernel(
+__global__ void __launch_bounds__(G * MAX_RT / SPT) flood_stats_kernel(
     const float *__restrict__ samples,    // (S, NR, RT, DIM) ball-local
-    const float *__restrict__ witnesses,  // (W, DIM) kd-ordered
+    const float *__restrict__ witnesses,  // (W, DIM) kd-ordered, 16B-aligned
     const float *__restrict__ sub_lo,     // (W / SUB, DIM) sub-chunk boxes
     const float *__restrict__ sub_hi,
     const float *__restrict__ centers,  // (S, DIM)
@@ -85,22 +95,35 @@ __global__ void __launch_bounds__(MAX_THREADS) flood_stats_kernel(
     const float *__restrict__ ub2,        // (S, NR)
     const int *__restrict__ blk_ptr,      // (n_blk + 1,) CSR offsets
     const int *__restrict__ blk_chunks,   // chunk ids, nearest first
+    const int *__restrict__ sim_order,    // (S,) simplex of each CTA
     float *__restrict__ out,              // (S, NR, RT) min d^2
     long long *__restrict__ stats,        // (S, 3)
-    int nr, int rt, int bs, int subs_per_chunk) {
+    int nr, int rt, int bs, int spc) {
+  // mins: the simplex's running mins (nr, rt); wmax: two buffers of
+  // (nr, MAX_GROUP_WARPS), per tile and group warp that warp's max of the
+  // tile's running mins
   extern __shared__ float dyn[];
-  float *mins = dyn;              // (NR, RT) running mins of this simplex
-  float *tmax = dyn + nr * rt;    // (NR,) max of each tile's running mins
-  __shared__ float4 wsh[SUB];
-  __shared__ float red[32];
-  const int s = blockIdx.x;
+  float *mins = dyn;
+  float *wmax = dyn + nr * rt;
+  // raw: each lane's own slots of the next sub-chunk (cp.async target);
+  // wsh: the staged tile, two buffers
+  __shared__ __align__(16) float raw[SUB * DIM];
+  __shared__ float4 wsh[2][SUB];
+  __shared__ int segcnt[2][NSEG];
+
+  const int s = sim_order[blockIdx.x];
   const int b = s / bs;
   const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+  const int TG = T / G;  // threads of a tile group (rt / SPT)
+  const int g = tid / TG, gt = tid - g * TG;
+  const int gw = gt >> 5, ngw = TG >> 5;  // warp in the group, its count
   const int c0 = blk_ptr[b], c1 = blk_ptr[b + 1];
   const size_t row0 = (size_t)s * nr;  // the simplex's first tile
 
   for (int i = tid; i < nr * rt; i += T) mins[i] = CUDART_INF_F;
-  for (int r = tid; r < nr; r += T) tmax[r] = CUDART_INF_F;
+  for (int i = tid; i < nr * MAX_GROUP_WARPS; i += T)
+    wmax[i] = CUDART_INF_F;
 
   float c[DIM], slo[DIM], shi[DIM];
 #pragma unroll
@@ -118,93 +141,132 @@ __global__ void __launch_bounds__(MAX_THREADS) flood_stats_kernel(
   }
   const float rad = radii[s];
   const float r2 = __fmul_rn(rad, rad);
-  long long units = 0, tiles = 0;
+  int units = 0, tiles = 0;  // per simplex: at most 4 x pairs (x nr)
   __syncthreads();
 
-  for (int p = c0; p < c1; ++p) {
-    // test 2's bound, once per pair (the last write to tmax was followed
-    // by a barrier)
-    float s_bound = tmax[0];
-    for (int r = 1; r < nr; ++r) s_bound = fmaxf(s_bound, tmax[r]);
-    const int chunk = blk_chunks[p];
-    for (int q = 0; q < subs_per_chunk; ++q) {
-      const int sub = chunk * subs_per_chunk + q;
-      float blo[DIM], bhi[DIM];
-      float near2 = 0.f, sgap2 = 0.f;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        const float lo = sub_lo[(size_t)sub * DIM + d];
-        const float hi = sub_hi[(size_t)sub * DIM + d];
-        near2 = sq_add(near2, __fsub_rn(fminf(fmaxf(c[d], lo), hi), c[d]));
-        blo[d] = __fsub_rn(lo, c[d]);
-        bhi[d] = __fsub_rn(hi, c[d]);
-        const float g = fmaxf(
-            fmaxf(__fsub_rn(blo[d], shi[d]), __fsub_rn(slo[d], bhi[d])), 0.f);
-        sgap2 = sq_add(sgap2, g);
+  // the list cursor and the next sub-chunk that passes test 1, with its pair
+  int p = c0, q = 0;
+  auto next_ball = [&](int &pair) -> int {
+    while (p < c1) {
+      const int sub = blk_chunks[p] * spc + q;
+      pair = p;
+      if (++q == spc) {
+        q = 0;
+        ++p;
       }
-      // tests 1 and 2, uniform over the CTA
-      if (!(near2 <= r2 && sgap2 <= s_bound)) continue;
-      ++units;
+      if (flood::near2<DIM>(sub_lo, sub_hi, sub, c) <= r2) return sub;
+    }
+    return -1;
+  };
+  // wmax[buf] entries of tile r; buffer `cur` holds the published maxima
+  int cur = 0;
+  auto wmax_at = [&](int buf, int r) {
+    return wmax + (buf * nr + r) * MAX_GROUP_WARPS;
+  };
+  // tile r's current max running min
+  auto tile_max = [&](int r) {
+    const float *m = wmax_at(cur, r);
+    float v = m[0];
+    for (int w = 1; w < ngw; ++w) v = fmaxf(v, m[w]);
+    return v;
+  };
+  auto tile_pass = [&](int sub, int r) {  // test 3
+    const size_t tile = row0 + r;
+    return flood::gap2<DIM>(sub_lo, sub_hi, sub, c, tile_lo + tile * DIM,
+                            tile_hi + tile * DIM) <=
+           fminf(tile_max(r), ub2[tile]);
+  };
+  // test 2; the simplex's bound is taken once per pair, from published maxima
+  float s_bound = 0.f;
+  int bound_pair = -1;
+  auto unit_pass = [&](int sub, int pair) {
+    if (pair != bound_pair) {
+      s_bound = tile_max(0);
+      for (int r = 1; r < nr; ++r) s_bound = fmaxf(s_bound, tile_max(r));
+      bound_pair = pair;
+    }
+    return flood::gap2<DIM>(sub_lo, sub_hi, sub, c, slo, shi) <= s_bound;
+  };
 
-      bool staged = false;
+  int wb = 0;             // the staging buffer no thread reads
+  bool dirty = false;     // a unit computed since the last barrier
+  bool fetched = false;   // cand's raw data is on its way
+  int cand_pair = 0, nxt_pair = 0;
+  int cand = next_ball(cand_pair);
+  while (cand >= 0) {
+    if (!dirty) {
+      // the published maxima are current: test before staging
+      bool any = unit_pass(cand, cand_pair);
+      if (any) {
+        ++units;
+        any = false;
+        for (int r = 0; r < nr && !any; ++r) any = tile_pass(cand, r);
+      }
+      if (!any) {
+        cand = next_ball(cand_pair);
+        fetched = false;
+        continue;
+      }
+      if (!fetched)
+        flood::fetch_raw<DIM>(raw, witnesses, cand, warp, nw, lane);
+    }
+
+    flood::stage_compacted<DIM>(raw, c, r2, wsh[wb], segcnt[wb], warp, nw,
+                                lane);
+    // fetch the next ball candidate while this one is tested and computed
+    const int nxt = next_ball(nxt_pair);
+    if (nxt >= 0) flood::fetch_raw<DIM>(raw, witnesses, nxt, warp, nw, lane);
+    __syncthreads();  // publishes wsh[wb], segcnt[wb] and the last maxima
+
+    bool admitted = true;
+    if (dirty) {
+      cur ^= 1;
+      dirty = false;
+      admitted = unit_pass(cand, cand_pair);
+      if (admitted) ++units;
+    }
+    if (admitted) {
+      int k = 0;  // computed tiles of this unit so far
       for (int r = 0; r < nr; ++r) {
+        if (!tile_pass(cand, r)) {
+          // carry the tile's maxima over to the buffer the next unit reads
+          if (tid < ngw) wmax_at(cur ^ 1, r)[tid] = wmax_at(cur, r)[tid];
+          continue;
+        }
+        if (k++ % G != g) continue;
         const size_t tile = row0 + r;
-        float gap2 = 0.f;
-#pragma unroll
-        for (int d = 0; d < DIM; ++d) {
-          const float g = fmaxf(
-              fmaxf(__fsub_rn(blo[d], tile_hi[tile * DIM + d]),
-                    __fsub_rn(tile_lo[tile * DIM + d], bhi[d])),
-              0.f);
-          gap2 = sq_add(gap2, g);
-        }
-        // test 3, uniform: tmax[r] changes only after this tile's barrier
-        if (!(gap2 <= fminf(tmax[r], ub2[tile]))) continue;
-        ++tiles;
-
-        if (!staged) {
-          // the sub-chunk, ball-local, out-of-ball witnesses far away (the
-          // barrier that ended the previous unit ordered its readers)
-          for (int j = tid; j < SUB; j += T) {
-            float4 yl;
-            const bool in = flood::ball_local<DIM>(
-                witnesses + ((size_t)sub * SUB + j) * DIM, c, r2, yl);
-            wsh[j] = in ? yl : flood::masked<DIM>();
-          }
-          __syncthreads();
-          staged = true;
-        }
-
         float x[SPT][DIM], acc[SPT];
 #pragma unroll
-        for (int k = 0; k < SPT; ++k) {
-          const int j = tid + k * T;
+        for (int kk = 0; kk < SPT; ++kk) {
+          const int j = gt + kk * TG;
 #pragma unroll
           for (int d = 0; d < DIM; ++d)
-            x[k][d] = samples[(tile * rt + j) * DIM + d];
-          acc[k] = mins[r * rt + j];
+            x[kk][d] = samples[(tile * rt + j) * DIM + d];
+          acc[kk] = mins[r * rt + j];
         }
-#pragma unroll 4
-        for (int w = 0; w < SUB; ++w) {
-          const float4 yv = wsh[w];
+        flood::min_over_staged<DIM, SPT>(wsh[wb], segcnt[wb], x, acc);
+        float wm = acc[0];
 #pragma unroll
-          for (int k = 0; k < SPT; ++k)
-            acc[k] = fminf(acc[k], flood::pair_d2<DIM>(yv, x[k]));
+        for (int kk = 0; kk < SPT; ++kk) {
+          mins[r * rt + gt + kk * TG] = acc[kk];
+          wm = fmaxf(wm, acc[kk]);
         }
-        float pm = acc[0];
-#pragma unroll
-        for (int k = 0; k < SPT; ++k) {
-          mins[r * rt + tid + k * T] = acc[k];
-          pm = fmaxf(pm, acc[k]);
-        }
-        pm = block_max(pm, red);
-        if (tid == 0) tmax[r] = pm;
+        for (int off = 16; off > 0; off >>= 1)
+          wm = fmaxf(wm, __shfl_xor_sync(flood::FULL, wm, off));
+        if (lane == 0) wmax_at(cur ^ 1, r)[gw] = wm;
       }
-      // tmax visible to all, and every read of wsh done before the next
-      // staging
-      __syncthreads();
+      tiles += k;
+      if (k > 0) {
+        dirty = true;
+        wb ^= 1;
+      }
     }
+    cand = nxt;
+    cand_pair = nxt_pair;
+    fetched = true;
   }
+  flood::cp_async_wait_all();
+  __syncthreads();  // every group's running mins written
 
   for (int i = tid; i < nr * rt; i += T) out[row0 * rt + i] = mins[i];
   if (tid == 0) {
@@ -220,18 +282,20 @@ cudaError_t launch(const float *samples, const float *witnesses,
                    const float *centers, const float *radii,
                    const float *tile_lo, const float *tile_hi,
                    const float *ub2, const int *blk_ptr,
-                   const int *blk_chunks, float *out, long long *stats,
-                   int s_total, int nr, int rt, int bs, int subs_per_chunk,
-                   cudaStream_t stream, long long *launched) {
+                   const int *blk_chunks, const int *sim_order, float *out,
+                   long long *stats, int s_total, int nr, int rt, int bs,
+                   int spc, cudaStream_t stream, long long *launched) {
   if (s_total == 0) return cudaSuccess;
-  const size_t smem = ((size_t)nr * rt + nr) * sizeof(float);
+  const size_t smem =
+      ((size_t)nr * rt + 2 * (size_t)nr * MAX_GROUP_WARPS) * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       flood_stats_kernel<DIM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  flood_stats_kernel<DIM><<<(unsigned)s_total, rt / SPT, smem, stream>>>(
+  flood_stats_kernel<DIM><<<(unsigned)s_total, G * (rt / SPT), smem,
+                            stream>>>(
       samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, tile_hi,
-      ub2, blk_ptr, blk_chunks, out, stats, nr, rt, bs, subs_per_chunk);
+      ub2, blk_ptr, blk_chunks, sim_order, out, stats, nr, rt, bs, spc);
   e = cudaGetLastError();
   if (e == cudaSuccess) ++*launched;
   return e;
@@ -247,49 +311,40 @@ const char *flood_stats_error_string(int code) {
 
 int flood_stats_sub() { return SUB; }
 
-// Launch K3 on `stream`: one CTA per simplex row. `rt` must be a multiple
-// of 128 and at most 512; `dim` 1..4; the simplex's running mins,
-// (nr * rt + nr) floats, must fit the CTA's shared memory. *launched is set
-// to the number of kernel launches enqueued without error (0 when there is
-// no simplex). Returns 0 or the CUDA error.
+// Launch K3 on `stream`: one CTA per simplex row, CTA i on simplex
+// sim_order[i] (a permutation of the rows). `rt` must be a multiple of 128
+// and at most 512; `dim` 1..4; `witnesses` 16-byte aligned; the simplex's
+// running mins and tile maxima, (nr * rt + 8 * nr) floats, must fit the
+// CTA's shared memory. *launched is set to the number of kernel launches
+// enqueued without error (0 when there is no simplex). Returns 0 or the
+// CUDA error.
 int flood_stats_launch(const float *samples, const float *witnesses,
                        const float *sub_lo, const float *sub_hi,
                        const float *centers, const float *radii,
                        const float *tile_lo, const float *tile_hi,
                        const float *ub2, const int *blk_ptr,
-                       const int *blk_chunks, float *out, long long *stats,
-                       int s_total, int nr, int rt, int dim, int bs,
-                       int subs_per_chunk, void *stream,
-                       long long *launched) {
+                       const int *blk_chunks, const int *sim_order,
+                       float *out, long long *stats, int s_total, int nr,
+                       int rt, int dim, int bs, int subs_per_chunk,
+                       void *stream, long long *launched) {
   *launched = 0;
-  if (rt <= 0 || rt > SPT * MAX_THREADS || rt % 128 != 0 || nr <= 0)
+  if (rt <= 0 || rt > MAX_RT || rt % 128 != 0 || nr <= 0 ||
+      reinterpret_cast<uintptr_t>(witnesses) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define FLOOD_STATS_LAUNCH(D)                                               \
+  launch<D>(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,    \
+            tile_hi, ub2, blk_ptr, blk_chunks, sim_order, out, stats,       \
+            s_total, nr, rt, bs, subs_per_chunk, st, launched)
   cudaError_t e;
   switch (dim) {
-    case 1:
-      e = launch<1>(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, out, stats,
-                    s_total, nr, rt, bs, subs_per_chunk, st, launched);
-      break;
-    case 2:
-      e = launch<2>(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, out, stats,
-                    s_total, nr, rt, bs, subs_per_chunk, st, launched);
-      break;
-    case 3:
-      e = launch<3>(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, out, stats,
-                    s_total, nr, rt, bs, subs_per_chunk, st, launched);
-      break;
-    case 4:
-      e = launch<4>(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, out, stats,
-                    s_total, nr, rt, bs, subs_per_chunk, st, launched);
-      break;
-    default:
-      e = cudaErrorInvalidValue;
+    case 1: e = FLOOD_STATS_LAUNCH(1); break;
+    case 2: e = FLOOD_STATS_LAUNCH(2); break;
+    case 3: e = FLOOD_STATS_LAUNCH(3); break;
+    case 4: e = FLOOD_STATS_LAUNCH(4); break;
+    default: e = cudaErrorInvalidValue;
   }
+#undef FLOOD_STATS_LAUNCH
   return static_cast<int>(e);
 }
 

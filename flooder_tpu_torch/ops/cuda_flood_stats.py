@@ -20,6 +20,18 @@ It takes exactly the operand tuple of ``CudaFloodEngine.prepare``. CPU
 tensors run ``flood_stats_reference``; CUDA tensors launch
 ``csrc/flood_stats.cu`` or raise.
 
+The kernel is one CTA per simplex, built as K1 is: each admitted sub-chunk
+is staged once, compacted to its in-ball witnesses, with one barrier per
+computed unit (the tile maxima of tests 2 and 3 are published with the
+staging, the next candidate is fetched with cp.async meanwhile); the CTAs
+run the simplices of the longest work-lists first (``_simplex_order``),
+and two tile groups of a CTA share each staged sub-chunk. Like K1
+it is bound by fp32 instruction issue: 7 instructions per in-ball (sample,
+witness) pair of the computed tiles, K1's own pairs in K1's inner loop. On
+an NVIDIA H100 80GB HBM3 at 700 W it takes 47.1 ms on the 1M x 1k main
+path's dimension-3 operands, against a 34.7 ms issue floor and a 22.3 ms
+operations bound, and 0.97x K1's time (PERF.md).
+
 Differences from the TPU tool, on purpose: the pair list is walked once
 with no launch segments, so it is not padded to whole segments by
 repeating its last pair. The TPU tool's padding inflates its column 0 and
@@ -36,7 +48,15 @@ import numpy as np
 import torch
 
 from ..utils.device import DeviceLike, as_tensor
-from .cuda_flood import BS, MASK, SUB, WCHUNK, _check_flood_operands, _sqsum
+from .cuda_flood import (
+    BS,
+    MASK,
+    SUB,
+    WCHUNK,
+    _check_flood_operands,
+    _cta_order,
+    _sqsum,
+)
 
 # Kernel launches through ``flood_min_stats`` (CUDA tensors only), as
 # counted by ``flood_stats_launch`` while it enqueues them.
@@ -105,7 +125,16 @@ def flood_stats_reference(samples, witnesses, sub_lo, sub_hi, centers,
     return out, stats
 
 
-_ARGTYPES = [ctypes.c_void_p] * 13 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
+def _simplex_order(blk_ptr: torch.Tensor) -> torch.Tensor:
+    """K3's launch order: CTA i runs simplex ``order[i]``. The blocks come
+    in K1's order (``_cta_order``: longest work-list first, ties by index),
+    and each block's BS simplices stay together, in row order (int32)."""
+    blocks = _cta_order(blk_ptr).long()
+    rows = torch.arange(BS, dtype=torch.long, device=blk_ptr.device)
+    return (blocks[:, None] * BS + rows).reshape(-1).to(torch.int32)
+
+
+_ARGTYPES = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 6 + [ctypes.c_void_p] * 2
 
 
 @functools.lru_cache(maxsize=None)
@@ -142,6 +171,7 @@ def flood_min_stats(samples, witnesses, sub_lo, sub_hi, centers, radii,
     s_total, nr, rt, dim, _ = _check_flood_operands(operands,
                                                     "flood_min_stats")
     lib = _lib()
+    order = _simplex_order(blk_ptr)
     out = torch.empty((s_total, nr, rt), dtype=torch.float32,
                       device=samples.device)
     stats = torch.empty((s_total, 3), dtype=torch.int64,
@@ -150,9 +180,9 @@ def flood_min_stats(samples, witnesses, sub_lo, sub_hi, centers, radii,
     with torch.cuda.device(samples.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flood_stats_launch(
-            *(t.data_ptr() for t in operands), out.data_ptr(),
-            stats.data_ptr(), s_total, nr, rt, dim, BS, WCHUNK // SUB,
-            stream, ctypes.byref(launched),
+            *(t.data_ptr() for t in operands), order.data_ptr(),
+            out.data_ptr(), stats.data_ptr(), s_total, nr, rt, dim, BS,
+            WCHUNK // SUB, stream, ctypes.byref(launched),
         )
     LAUNCHES += launched.value
     if rc != 0:

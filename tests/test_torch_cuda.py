@@ -137,26 +137,101 @@ def test_flood_kernel_matches_plain_where_balls_cut_subchunks(cuda_device):
     assert stats_3[:, cuda_flood_stats.COL_TILES].sum().item() == units
 
 
-@pytest.mark.parametrize("tight,num_rand", [(True, None), (False, 300)])
-def test_flood_stats_kernel_matches_plain(cuda_device, tight, num_rand):
-    ops = _dim3_operands(cuda_device, tight=tight, num_rand=num_rand)
+# K3's cases beyond the Delaunay scenes, as k3_case_operands arguments; CPU
+# tests (test_torch_kernel_stats.py) check through the plain version that each
+# reaches the fold of a unit with no in-ball witness and a tile that test 3
+# rejects inside an admitted unit. At 512 samples a tile the dim cases have
+# 3 or 4 tiles a simplex, so both tile groups of a CTA compute tiles and read
+# each other's tile maxima.
+K3_CASES = {
+    "dim1": dict(dim=1, r_count=1100),
+    "dim2": dict(dim=2, r_count=2000),
+    "dim4": dict(dim=4, r_count=1100),
+    "nr1": dict(dim=3, r_count=200),
+    "nr3": dict(dim=3, r_count=1300),
+    "empty-block": dict(dim=3, r_count=300, empty_block=True),
+}
+
+
+def k3_case_operands(device, dim, r_count, empty_block=False, seed=7):
+    """Seeded K3 operands from ``CudaFloodEngine.prepare``: 16,384 witnesses
+    in [0, 5]^dim, 4 blocks of random simplices with the nearest-vertex
+    bound on. Every fourth ball has radius 1e-5, so it meets the sub-chunk
+    boxes around its centre but holds no witness; ``empty_block`` gives the
+    last block radius 0, so its work-list is empty."""
+    rng = np.random.default_rng(seed + dim)
+    X = (rng.random((16384, dim)) * 5).astype(np.float32)
+    eng = cuda_flood.CudaFloodEngine(torch.from_numpy(X).to(device))
+    S, k = cuda_flood.BS * 4, dim + 1
+    centers = (rng.random((S, dim)) * 5).astype(np.float32)
+    radii = (rng.random(S) * 1.2 + 0.1).astype(np.float32)
+    radii[::4] = 1e-5
+    if empty_block:
+        radii[-cuda_flood.BS:] = 0.0
+    verts = centers[:, None, :] + (
+        rng.random((S, k, dim)).astype(np.float32) - 0.5
+    ) * 0.3
+    w = rng.random((r_count, k)).astype(np.float32)
+    w /= w.sum(axis=1, keepdims=True)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return eng.prepare(t(verts), w, t(centers), t(radii), True)[0]
+
+
+def k3_paths_reached(out, stats):
+    """(a unit with no in-ball witness was computed, test 3 rejected a tile
+    inside an admitted unit), read off K3's plain output: only the fold of
+    such a unit gives a finite d^2 >= 1e30, and an admitted unit tests all
+    nr tiles."""
+    nr = out.shape[1]
+    fold = bool(((out >= cuda_flood._MASKED_D2) & torch.isfinite(out)).any())
+    units = stats[:, cuda_flood_stats.COL_SUBCHUNKS]
+    rejected = bool((units * nr > stats[:, cuda_flood_stats.COL_TILES]).any())
+    return fold, rejected
+
+
+def assert_k3_matches_plain(ops):
+    """K3, launched once through its wrapper, against its plain version
+    (d^2 within 1e-6, inf alike, every counter equal) and against K1 (equal
+    output, computed tiles == K1's units)."""
     before = cuda_flood_stats.LAUNCHES
     out_k, stats_k = cuda_flood_stats.flood_min_stats(*ops)
     torch.cuda.synchronize()
     assert cuda_flood_stats.LAUNCHES == before + 1
     out_p, stats_p = cuda_flood_stats.flood_stats_reference(*ops)
-    masked_k = out_k >= cuda_flood._MASKED_D2
     masked_p = out_p >= cuda_flood._MASKED_D2
-    assert torch.equal(masked_k, masked_p)
-    assert (out_k[~masked_k] - out_p[~masked_p]).abs().max().item() <= 1e-6
+    assert torch.equal(out_k >= cuda_flood._MASKED_D2, masked_p)
+    diff = (out_k[~masked_p] - out_p[~masked_p]).abs()
+    assert diff.numel() == 0 or diff.max().item() <= 1e-6
     assert torch.equal(stats_k, stats_p)
     assert stats_k[:, cuda_flood_stats.COL_TILES].sum().item() > 0
-    # the same tiles as K1, so the same output
     out_1, stats_1 = cuda_flood.flood_min(*ops)
     assert torch.equal(out_k, out_1)
     assert stats_k[:, cuda_flood_stats.COL_TILES].sum().item() == (
         cuda_flood.kernel_operations(stats_1)[0]
     )
+    return out_p, stats_p
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_flood_stats_kernel_cases_match_plain(cuda_device, case):
+    ops = k3_case_operands(cuda_device, **K3_CASES[case])
+    out_p, stats_p = assert_k3_matches_plain(ops)
+    assert k3_paths_reached(out_p, stats_p) == (True, True)
+    if case == "empty-block":
+        assert torch.isinf(out_p[-cuda_flood.BS:]).all()
+        assert not stats_p[-cuda_flood.BS:].any()
+
+
+# the last case is the K1 case above whose balls cut sub-chunks
+@pytest.mark.parametrize(
+    "tight,num_rand,shift,radius_scale",
+    [(True, None, 0.0, 1.0), (False, 300, 0.0, 1.0), (False, 300, 0.05, 0.5)],
+)
+def test_flood_stats_kernel_matches_plain(cuda_device, tight, num_rand,
+                                          shift, radius_scale):
+    ops = _dim3_operands(cuda_device, tight=tight, num_rand=num_rand,
+                         shift=shift, radius_scale=radius_scale)
+    assert_k3_matches_plain(ops)
 
 
 def test_kernel_stats_tool_on_card(cuda_device):

@@ -7,6 +7,8 @@
 - K3 against K1 on the port's own operands: bit-equal output, and the
   computed tiles equal K1's admitted units;
 - the port's tool (``flooder_tpu_torch.tools``) end to end on the CPU;
+- K3's launch order, and that the operands of K3's card tests reach the
+  kernel's fold and its deferred tile maxima;
 - no fallback: without CUDA the default device raises, and a tensor that
   is not on the CPU never reaches the plain version.
 """
@@ -24,6 +26,7 @@ from flooder_tpu_torch.ops import cuda_flood_stats as cfs
 from flooder_tpu_torch.tools import kernel_stats as ks_t
 from flooder_tpu_torch.tools import scene as scene_mod
 from flooder_tpu_torch.tools.scene import build_scene
+from test_torch_cuda import K3_CASES, k3_case_operands, k3_paths_reached
 from test_torch_flood import _prep_inputs  # seeded flood operands
 from tools import kernel_stats as ks_j
 
@@ -150,6 +153,46 @@ def test_block_slice_gives_the_blocks_rows():
     out_s, stats_s = cfs.flood_stats_reference(*sliced)
     assert torch.equal(out_s, out[rows])
     assert torch.equal(stats_s, stats[rows])
+
+
+@pytest.mark.parametrize(
+    "lens",
+    [np.random.default_rng(5).integers(0, 6, 50), np.full(9, 4), [3]],
+    ids=["ties", "all-equal", "one-block"],
+)
+def test_simplex_order_runs_longest_worklist_first(lens):
+    """K3's launch order: a permutation of the simplex rows that takes the
+    blocks by decreasing work-list length, ties by block index, with the BS
+    simplices of a block together and in row order."""
+    lens = np.asarray(lens, dtype=np.int64)
+    blk_ptr = torch.tensor(np.concatenate([[0], np.cumsum(lens)]),
+                           dtype=torch.int32)
+    order = cfs._simplex_order(blk_ptr)
+    assert order.dtype == torch.int32
+    o = order.numpy()
+    np.testing.assert_array_equal(np.sort(o), np.arange(len(lens) * cf.BS))
+    blocks = o.reshape(-1, cf.BS) // cf.BS
+    assert (blocks == blocks[:, :1]).all()  # a block's simplices together
+    np.testing.assert_array_equal(o.reshape(-1, cf.BS) % cf.BS,
+                                  np.tile(np.arange(cf.BS), (len(lens), 1)))
+    np.testing.assert_array_equal(
+        blocks[:, 0], sorted(range(len(lens)), key=lambda b: (-lens[b], b))
+    )
+
+
+@pytest.mark.parametrize("case", list(K3_CASES))
+def test_card_k3_cases_reach_fold_and_deferred_max(case):
+    """The operands of the card's K3 cases (tests/test_torch_cuda.py), built
+    here on the CPU, make the plain version compute a unit with no in-ball
+    witness (the compacted kernel's fold) and reject a tile by test 3 inside
+    an admitted unit (the kernel's deferred tile maxima); the empty block
+    visits nothing."""
+    ops = k3_case_operands("cpu", **K3_CASES[case])
+    out, stats = cfs.flood_stats_reference(*ops)
+    assert k3_paths_reached(out, stats) == (True, True)
+    lens = (ops[9][1:] - ops[9][:-1]).numpy()
+    assert (lens[-1] == 0) == (case == "empty-block")
+    assert out.shape[1] == {"nr1": 1, "dim2": 4, "empty-block": 1}.get(case, 3)
 
 
 def test_main_prints_one_record(capsys, tmp_path):
