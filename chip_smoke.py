@@ -28,6 +28,22 @@ beside K1 and its issue floor at both shapes; and the tool
 (``python -m flooder_tpu_torch.tools.kernel_stats``) is driven at 1M x 1k
 with the launch counters set to 0 just before it and read just after.
 
+Phases added with the dense engine and float64 (each fails the run if its
+check fails):
+
+- dims: K1 and K3 against their plain versions at 5, 6 and 8 coordinates
+  on seeded operands with several tiles a simplex and balls that cut
+  sub-chunks; the reference's 5-D grid and 6-D random edge cases through
+  ``flood_complex`` on the card against the CPU run; K1 timed on a 200k
+  5-D cloud; the pair loop of every K1 and K3 instance read from the SASS.
+- float64: K2's double instance against its plain version on the
+  many-chunks cloud and the 1M cheese (1000 landmarks), timed beside
+  float32; ``flood_complex`` in float64 (dense engine) against the float32
+  kernel route on the two 3,000 x 150 clouds of the reference's
+  test_float64, and timed on the 100k x 300 cheese.
+- dense: ``use_pallas=False`` in float32 against the kernel route on the
+  100k x 300 cheese, timed.
+
 Output: ``#`` lines with every phase's result, then a ``{"kernels": ...}``
 JSON line, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure ends the script with a
@@ -37,10 +53,13 @@ non-zero exit code and no result line; it exits 2 without CUDA.
 import contextlib
 import io
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
 import time
+import warnings
 
 import numpy as np
 
@@ -52,7 +71,9 @@ REPS = 3
 # cores, and HBM3 bandwidth. Both assume the 700 W power limit.
 PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
-FLOOD_OPS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add, 1 min per in-ball pair
+# H100 SXM fp64 outside the tensor cores (NVIDIA data sheet, 700 W)
+PEAK_FP64 = 34e12
+FLOOD_OPS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add, 1 min per in-ball pair (3-D)
 # fp32 instructions K1 issues per in-ball pair: the inner loop of
 # flood_min_kernel<3> in SASS (cuobjdump -sass of build/flooder_tpu_torch/
 # libflood.so) holds 48 FADD, 16 FMUL, 32 FFMA and 16 FMNMX for 16 pairs
@@ -67,6 +88,11 @@ K3_PLAIN_POINTS = 100_000  # the kernel-stats tool's default scene
 K3_PLAIN_LANDMARKS = 300
 K3_LONGEST_BLOCKS = 16  # K3's plain check at 1M x 1k: whole blocks
 K3_SPREAD_BLOCKS = 48
+HIGH_DIMS = (5, 6, 8)  # K1 and K3 held against their plain versions
+DIM5_POINTS, DIM5_LANDMARKS, DIM5_PPE = 200_000, 64, 5  # K1 timed at 5-D
+F64_LANDMARKS = 150  # the reference's test_float64 clouds: 3000 x 150
+F64_POINTS = 3000
+DENSE_POINTS, DENSE_LANDMARKS = 100_000, 300  # float64 and dense timing
 
 
 def log(msg):
@@ -133,30 +159,6 @@ def check_same_greedy(points, a, b, start):
     return float(diff.max()) if len(diff) else 0.0
 
 
-def dim3_pass_operands(engine, landmarks, ppe, tight=True):
-    """The operands flood_complex hands kernel K1 in its dimension-3 pass,
-    and the number of tetrahedra."""
-    import torch
-
-    from flooder_tpu_torch.core import _grid_host
-    from flooder_tpu_torch.ops.flood import simplex_bounding_balls
-    from flooder_tpu_torch.topology import DelaunayComplex
-
-    dev = landmarks.device
-    stree = DelaunayComplex(
-        landmarks.cpu().numpy().astype(np.float64)
-    ).create_simplex_tree()
-    tets = torch.as_tensor(stree._verts[3], device=dev).long()
-    verts = landmarks[tets]
-    centers, radii = simplex_bounding_balls(verts)
-    order = torch.as_tensor(engine.order(centers), device=dev)
-    weights = _grid_host(ppe, 3)[0]
-    operands, _, num = engine.prepare(
-        verts[order], weights, centers[order], radii[order], tight
-    )
-    return operands, num
-
-
 def flood_d2_diff(out_a, out_b, what):
     """Max |d2 diff| of two flood outputs, which must mark no-witness
     entries (>= 1e30) in the same places."""
@@ -171,6 +173,150 @@ def flood_d2_diff(out_a, out_b, what):
     return err
 
 
+def seeded_flood_operands(dim, device, r_count=1100, radius_max=3.0,
+                          seed=7):
+    """K1's operands at ``dim`` coordinates from ``CudaFloodEngine.prepare``
+    (as tests/test_torch_cuda.py builds them): 16,384 uniform witnesses in
+    [0, 5]^dim, 4 blocks of random simplices, radii in [0.1, radius_max)
+    with every fourth 1e-5 (it meets boxes but holds no witness), 1100
+    samples (3 tiles a simplex), the nearest-vertex bound on."""
+    import torch
+
+    from flooder_tpu_torch.ops import cuda_flood
+
+    rng = np.random.default_rng(seed + dim)
+    X = (rng.random((16384, dim)) * 5).astype(np.float32)
+    eng = cuda_flood.CudaFloodEngine(torch.from_numpy(X).to(device))
+    S, k = cuda_flood.BS * 4, dim + 1
+    centers = (rng.random((S, dim)) * 5).astype(np.float32)
+    radii = (rng.random(S) * (radius_max - 0.1) + 0.1).astype(np.float32)
+    radii[::4] = 1e-5
+    verts = centers[:, None, :] + (
+        rng.random((S, k, dim)).astype(np.float32) - 0.5) * 0.3
+    w = rng.random((r_count, k)).astype(np.float32)
+    w /= w.sum(axis=1, keepdims=True)
+    t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
+    return eng.prepare(t(verts), w, t(centers), t(radii), True)[0]
+
+
+def top_pass_operands(engine, landmarks, ppe, tight=True):
+    """The operands flood_complex hands kernel K1 in its top-dimension pass
+    (grid mode), and the number of top simplices."""
+    import torch
+
+    from flooder_tpu_torch.core import _grid_host
+    from flooder_tpu_torch.ops.flood import simplex_bounding_balls
+    from flooder_tpu_torch.topology import DelaunayComplex
+
+    dev = landmarks.device
+    dim = landmarks.shape[1]
+    stree = DelaunayComplex(
+        landmarks.cpu().numpy().astype(np.float64)
+    ).create_simplex_tree()
+    top = torch.as_tensor(stree._verts[dim], device=dev).long()
+    verts = landmarks[top]
+    centers, radii = simplex_bounding_balls(verts)
+    order = torch.as_tensor(engine.order(centers), device=dev)
+    operands, _, num = engine.prepare(
+        verts[order], _grid_host(ppe, dim)[0], centers[order], radii[order],
+        tight)
+    return operands, num
+
+
+def complex_dict(points, landmarks, device, **kw):
+    """flood_complex as a {simplex: value} dict (float64 warnings muted)."""
+    import flooder_tpu_torch as ft
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)
+        st = ft.flood_complex(points, landmarks, return_simplex_tree=True,
+                              device=device, **kw)
+    return {tuple(s): f for s, f in st.get_simplices()}
+
+
+def complex_diff(a, b, tol, what):
+    """Max |value diff| of two complexes, which must hold the same simplices
+    with inf in the same places and every finite value within ``tol``."""
+    if a.keys() != b.keys():
+        raise AssertionError(f"{what}: the simplices differ")
+    err = 0.0
+    for s, v in a.items():
+        if np.isinf(v) != np.isinf(b[s]):
+            raise AssertionError(f"{what}: inf differs at {s}")
+        if np.isfinite(v):
+            err = max(err, abs(b[s] - v))
+    if not err <= tol:
+        raise AssertionError(f"{what}: max |diff| {err} > {tol}")
+    return err
+
+
+def sass_pair_loops(lib_path):
+    """Per kernel instance of a built library, from ``cuobjdump -sass``:
+    (instance, instructions of its pair loop, local-memory accesses in it,
+    local-memory accesses in the whole kernel). The pair loop is the
+    innermost backward branch whose body holds 16 FMNMX and FFMA, the
+    inner loop of min_over_staged (4 witnesses x 4 samples). None where
+    the toolkit has no cuobjdump."""
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from flooder_tpu_torch.native.build import kernel_instance
+
+    exe = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin",
+                                                    "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    text = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    rows = []
+    for block in text.split("Function : ")[1:]:
+        name = kernel_instance(block.split(None, 1)[0])
+        ins = [(int(a, 16), op) for a, op in re.findall(
+            r"/\*([0-9a-f]{4,})\*/\s+([^;]*);", block)]
+        best = None
+        for addr, op in ins:
+            m = re.search(r"\bBRA\b.*?(0x[0-9a-f]+)", op)
+            if not m or int(m.group(1), 16) >= addr:
+                continue
+            body = [o for a, o in ins if int(m.group(1), 16) <= a <= addr]
+            if (sum("FMNMX" in o for o in body) == 16
+                    and any("FFMA" in o for o in body)
+                    and (best is None or len(body) < len(best))):
+                best = body
+        rows.append((name, len(best) if best else None,
+                     _local_accesses(best) if best else None,
+                     _local_accesses(o for _, o in ins)))
+    return rows
+
+
+def _local_accesses(ops):
+    return sum(("LDL" in o) or ("STL" in o) for o in ops)
+
+
+def resident_ctas(regs, smem, threads):
+    """CTAs an H100 SM holds at once (derived from the ptxas line, not
+    measured): the least of its 65,536 registers (allocated per warp in
+    units of 256), its 228 KB of shared memory (1 KB reserved a CTA),
+    2,048 threads and 32 CTAs."""
+    warps = threads // 32
+    regs_per_warp = -(-regs * 32 // 256) * 256
+    return min(65536 // (regs_per_warp * warps), 233472 // (smem + 1024),
+               2048 // threads, 32)
+
+
+def flood_occupancy(ptxas_rows, kernel, threads, dyn_smem):
+    """(instance, shared bytes a CTA, resident CTAs and warps an SM) of the
+    flood kernels' instances at rt 512; ``dyn_smem(dim)`` is the dynamic
+    shared memory a CTA asks for."""
+    rows = []
+    for name, regs, _, smem in ptxas_rows:
+        if name.startswith(kernel + "<"):
+            dim = int(name[len(kernel) + 1:-1])
+            total = smem + dyn_smem(dim)
+            ctas = resident_ctas(regs, total, threads)
+            rows.append((name, total, ctas, ctas * threads // 32))
+    return rows
+
+
 def issue_floor_ms(inball_pairs, sms, clock_mhz):
     """Derived issue floor of K1 and K3: FLOOD_INSTR_PER_PAIR fp32
     instructions per in-ball pair over the card's fp32 lanes at the max SM
@@ -180,13 +326,15 @@ def issue_floor_ms(inball_pairs, sms, clock_mhz):
 
 
 def flood_bound_ms(operands, inball_pairs):
-    """Least time for K1's work: the larger of its operations (9 per
-    in-ball pair of the admitted units) over the fp32 peak and its bytes
-    (every input read once, the output written once) over HBM."""
+    """Least time for K1's work: the larger of its operations (3 per
+    coordinate per in-ball pair of the admitted units: sub, mul, add or min)
+    over the fp32 peak and its bytes (every input read once, the output
+    written once) over HBM."""
     samples = operands[0]
     in_bytes = sum(t.numel() * t.element_size() for t in operands)
     out_bytes = samples.numel() // samples.shape[-1] * 4
-    t_ops = FLOOD_OPS_PER_PAIR * inball_pairs / PEAK_FP32
+    ops_per_pair = FLOOD_OPS_PER_PAIR * samples.shape[-1] // 3
+    t_ops = ops_per_pair * inball_pairs / PEAK_FP32
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else (
         "bytes")
@@ -221,9 +369,26 @@ def main():
     build.build_cuda(["flood", "fps", "flood_stats"])
     log(f"kernel build: {time.perf_counter() - t0:.2f}s wall for flood, fps, "
         f"flood_stats in parallel; per source {build.BUILD_SECONDS}")
+    raw8 = cuda_flood.SUB * 8 * 4  # K1's and K3's raw buffer at DIM 8
+    # (kernel, threads a CTA, dynamic shared bytes at rt 512 and K3's nr 10)
+    occupancy_of = {
+        "flood": ("flood_min_kernel", 128, lambda d: raw8 if d == 8 else 0),
+        "flood_stats": ("flood_stats_kernel", 256, lambda d: (
+            10 * 512 + 8 * 10) * 4 + (raw8 if d == 8 else 0)),
+    }
     for name, text in build.BUILD_LOG.items():
+        rows = build.ptxas_kernels(text)
         log(f"ptxas {name}: (kernel, registers, spill-store bytes, static "
-            f"smem bytes) {build.ptxas_kernels(text)}")
+            f"smem bytes) {rows}")
+        if name in occupancy_of:
+            log(f"occupancy of {name} at rt 512 (K3 at nr 10), derived from "
+                "ptxas: (kernel, shared bytes a CTA, CTAs an SM, warps an SM) "
+                f"{flood_occupancy(rows, *occupancy_of[name])}")
+    for name in ("flood", "flood_stats"):
+        loops = sass_pair_loops(build.cuda_library(name))
+        log(f"SASS {name}: (kernel, pair-loop instructions for 16 pairs, "
+            f"local accesses in it, local accesses in the kernel) "
+            f"{loops if loops is not None else 'cuobjdump not found'}")
     t0 = time.perf_counter()
     build.load_persistence()
     log(f"native persistence build: {time.perf_counter() - t0:.2f}s")
@@ -262,7 +427,7 @@ def main():
     log(f"engine set-up (pad, k-d order, boxes) for {N_POINTS} witnesses: "
         f"{1e3 * (time.perf_counter() - t0):.1f} ms (host clock)")
     # every tetrahedron of the main path's dimension-3 pass, at full width
-    ops, n_tets = dim3_pass_operands(engine, L, PPE)
+    ops, n_tets = top_pass_operands(engine, L, PPE)
     out_k, stats_k = cuda_flood.flood_min(*ops)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -364,7 +529,7 @@ def main():
         f"the whole run): {json.dumps(split)}")
 
     # ---- kernel times at the main path's shapes -----------------------------
-    ops, _ = dim3_pass_operands(engine, L, PPE)
+    ops, _ = top_pass_operands(engine, L, PPE)
     k1_ms = cuda_ms(lambda: cuda_flood.flood_min(*ops), 5)
     out_k1, stats_full = cuda_flood.flood_min(*ops)
     units, inball = cuda_flood.kernel_operations(stats_full)
@@ -531,6 +696,171 @@ def main():
         raise AssertionError("kernel_stats tool: other work than the main "
                              "path's dimension-3 pass")
 
+    # ---- dims: K1 and K3 at 5-8 coordinates -------------------------------
+    t_phase = time.perf_counter()
+    k1_dim_err, k3_dim_err = {}, {}
+    for dim in HIGH_DIMS:
+        dops = seeded_flood_operands(dim, dev)
+        out_d, stats_d = cuda_flood.flood_min(*dops)
+        out_dp, stats_dp = cuda_flood.flood_pairs_reference(*dops)
+        k1_dim_err[dim] = flood_d2_diff(out_d, out_dp,
+                                        f"K1<{dim}> against its plain version")
+        if not torch.equal(stats_d, stats_dp):
+            raise AssertionError(f"K1<{dim}> admitted other units than its "
+                                 "plain version")
+        units_d, inball_d = cuda_flood.kernel_operations(stats_d)
+        nr_d, rt_d = dops[0].shape[1:3]
+        if not (nr_d >= 2 and 0 < inball_d < units_d * cuda_flood.SUB * rt_d):
+            raise AssertionError(f"dim {dim}: operands must give several "
+                                 "tiles a simplex and partly masked units")
+        out_3, stats_3 = cuda_flood_stats.flood_min_stats(*dops)
+        out_3p, stats_3p = cuda_flood_stats.flood_stats_reference(*dops)
+        k3_dim_err[dim] = flood_d2_diff(out_3, out_3p,
+                                        f"K3<{dim}> against its plain version")
+        if not torch.equal(stats_3, stats_3p):
+            raise AssertionError(f"K3<{dim}> counters differ from its plain "
+                                 "version")
+        if not (torch.equal(out_3, out_d) and stats_3[
+                :, cuda_flood_stats.COL_TILES].sum().item() == units_d):
+            raise AssertionError(f"K3<{dim}> differs from K1<{dim}>")
+        log(f"dim {dim}: K1 max |d2 diff| {k1_dim_err[dim]} and K3 "
+            f"{k3_dim_err[dim]} against their plain versions, inf in the same "
+            f"places, {units_d} admitted units equal, K3 counters equal "
+            f"(column sums {stats_3.sum(0).tolist()}), K3 == K1; {nr_d} tiles "
+            f"a simplex, {inball_d} in-ball of "
+            f"{units_d * cuda_flood.SUB * rt_d} pairs")
+    del dops, out_d, stats_d, out_dp, stats_dp, out_3, stats_3, out_3p
+    del stats_3p
+    # the reference's 5-D grid and 6-D random edge cases, card against CPU
+    edge_err = {}
+    for case, shape, seed, n_lms, kw in (
+            ("5d-grid", (1200, 5), 7, 24, dict(points_per_edge=4)),
+            ("6d-random", (800, 6), 8, 16,
+             dict(num_rand=32, points_per_edge=None))):
+        pts = np.random.default_rng(seed).random(shape).astype(np.float32)
+        res = {}
+        for d in ("cpu", "cuda"):
+            np.random.seed(3)
+            k0 = cuda_flood.LAUNCHES
+            res[d] = complex_dict(pts, n_lms, d, start_idx=0, **kw)
+        if cuda_flood.LAUNCHES == k0:
+            raise AssertionError(f"{case}: K1 did not run on the card")
+        edge_err[case] = complex_diff(res["cpu"], res["cuda"], 1e-5, case)
+        log(f"{case} {shape[0]} x {n_lms}: card == CPU on {len(res['cpu'])} "
+            f"simplices (every dimension to {shape[1]}), max |diff| "
+            f"{edge_err[case]}")
+    # K1 timed on a 5-D cloud
+    X5 = torch.rand(DIM5_POINTS, 5, device=dev,
+                    generator=torch.Generator(dev).manual_seed(5))
+    L5 = ft.generate_landmarks(X5, DIM5_LANDMARKS, start_idx=0)
+    ops5, n5 = top_pass_operands(cuda_flood.CudaFloodEngine(X5), L5,
+                                 DIM5_PPE)
+    k1_5d_ms = cuda_ms(lambda: cuda_flood.flood_min(*ops5), 5)
+    _, stats5 = cuda_flood.flood_min(*ops5)
+    units5, inball5 = cuda_flood.kernel_operations(stats5)
+    k1_5d_bound, k1_5d_by = flood_bound_ms(ops5, inball5)
+    s5, nr5, rt5 = ops5[0].shape[:3]
+    log(f"K1<5> at {DIM5_POINTS} x {DIM5_LANDMARKS}, ppe {DIM5_PPE} "
+        f"({n5} 5-simplices, {nr5} x {rt5} samples a simplex, "
+        f"{ops5[-1].numel()} pairs, {units5} units, {inball5} in-ball pairs, "
+        f"{s5 // cuda_flood.BS * nr5} CTAs of {rt5 // 4} threads): kernel "
+        f"{k1_5d_ms:.3f} ms, bound {k1_5d_bound:.4f} ms ({k1_5d_by})")
+    del X5, L5, ops5, stats5
+    log(f"dims phase: {time.perf_counter() - t_phase:.1f}s")
+
+    # ---- float64: K2's double instance and the dense engine -----------------
+    t_phase = time.perf_counter()
+    ctas64 = cuda_fps.coresident_ctas(3, dtype=torch.float64)
+    n_many64 = cuda_fps.FPS_CHUNK * (max(ctas, ctas64) + 5)
+    P = torch.rand(n_many64, 3, generator=torch.Generator(dev).manual_seed(11),
+                   device=dev).double()
+    a = cuda_fps.cuda_farthest_point_sampling(
+        P, FPS_MANY_CHUNKS_LANDMARKS, 3).cpu().numpy()
+    b = farthest_point_sampling(P, FPS_MANY_CHUNKS_LANDMARKS, 3).cpu().numpy()
+    fps64_err_many = check_same_greedy(P, a, b, 3)
+    log(f"K2 float64 fps {n_many64} x {FPS_MANY_CHUNKS_LANDMARKS} "
+        f"({n_many64 // cuda_fps.FPS_CHUNK} chunks on {ctas64} co-resident "
+        f"CTAs): same greedy selection as the plain version, max |step d2 "
+        f"diff| {fps64_err_many}")
+    del P
+    X64 = X.double()
+    a = cuda_fps.cuda_farthest_point_sampling(X64, N_LANDMARKS, 0)
+    b = farthest_point_sampling(X64, N_LANDMARKS, 0)
+    fps64_err = check_same_greedy(X64, a.cpu().numpy(), b.cpu().numpy(), 0)
+    prep64 = cuda_fps._fps_prepare(X64, 0)
+    k2_64_ms = cuda_ms(lambda: cuda_fps.fps_kernel_run(prep64, N_LANDMARKS), 5)
+    visits64 = int(cuda_fps.last_visits.item())
+    k2_64_plain = cuda_ms(
+        lambda: farthest_point_sampling(X64, N_LANDMARKS, 0), 1)
+    fps64_ops = FPS_OPS_PER_POINT * visits64 * cuda_fps.FPS_CHUNK
+    fps64_bytes = X64.numel() * 8 + N_LANDMARKS * 4
+    k2_64_bound = 1e3 * max(fps64_ops / PEAK_FP64, fps64_bytes / PEAK_BYTES)
+    k2_64_by = ("operations" if fps64_ops / PEAK_FP64 >= fps64_bytes /
+                PEAK_BYTES else "bytes")
+    del prep64
+    log(f"K2 float64 at 1M x 1k: same greedy selection as the plain version "
+        f"(max |step d2 diff| {fps64_err}); greedy loop {k2_64_ms:.3f} ms "
+        f"({1e3 * k2_64_ms / (N_LANDMARKS - 1):.2f} us per greedy step; "
+        f"float32 {k2_ms:.3f} ms, {1e3 * k2_ms / (N_LANDMARKS - 1):.2f} us); "
+        f"{visits64} chunk visits; plain {k2_64_plain:.1f} ms; bound "
+        f"{k2_64_bound:.4f} ms ({k2_64_by}, fp64 peak {PEAK_FP64 / 1e12:.0f} "
+        "TFLOP/s)")
+    # flood_complex in float64 (dense engine) against float32 (K1), on the
+    # reference's test_float64 clouds
+    f64_err = {}
+    for cloud in ("torus", "cheese"):
+        if cloud == "torus":
+            P32 = ft.generate_noisy_torus_points_3d(F64_POINTS, seed=11,
+                                                    device=dev)
+        else:
+            P32 = ft.generate_swiss_cheese_points(F64_POINTS, seed=11,
+                                                  device=dev)[0]
+        L32 = ft.generate_landmarks(P32, F64_LANDMARKS, start_idx=0)
+        f32 = complex_dict(P32, L32, "cuda")
+        f64 = complex_dict(P32.double(), L32.double(), "cuda")
+        f64_err[cloud] = complex_diff(f32, f64, 3e-6,
+                                      f"float64 against float32 ({cloud})")
+        log(f"float64 {cloud} {F64_POINTS} x {F64_LANDMARKS}, ppe {PPE}: "
+            f"dense engine on the card == K1 route in float32 on "
+            f"{len(f32)} simplices, max |diff| {f64_err[cloud]}")
+    C32 = ft.generate_swiss_cheese_points(DENSE_POINTS, k=6, seed=42,
+                                          device=dev)[0]
+    C64 = C32.double()
+    n0 = cuda_fps.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    c64 = complex_dict(C64, DENSE_LANDMARKS, "cuda")
+    torch.cuda.synchronize()
+    f64_s = time.perf_counter() - t0
+    if cuda_fps.LAUNCHES != n0 + 1:
+        raise AssertionError("float64 flood_complex did not run K2 once")
+    if not np.isfinite(list(c64.values())).all():
+        raise AssertionError("float64 100k x 300: non-finite values")
+    log(f"float64 flood_complex {DENSE_POINTS} x {DENSE_LANDMARKS}, ppe "
+        f"{PPE} (K2 double, dense engine on the card, engine built in the "
+        f"run): {f64_s:.3f}s host clock, {len(c64)} simplices, all finite")
+    del C64, c64
+    log(f"float64 phase: {time.perf_counter() - t_phase:.1f}s")
+
+    # ---- dense: use_pallas=False in float32 against the kernel route -------
+    t_phase = time.perf_counter()
+    LC = ft.generate_landmarks(C32, DENSE_LANDMARKS, start_idx=0)
+    k1_route = complex_dict(C32, LC, "cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense_route = complex_dict(C32, LC, "cuda", use_pallas=False)
+    torch.cuda.synchronize()
+    dense_s = time.perf_counter() - t0
+    dense_err = complex_diff(k1_route, dense_route, 1e-5,
+                             "use_pallas=False against the kernel route")
+    n_inf = sum(np.isinf(v) for v in k1_route.values())
+    log(f"dense {DENSE_POINTS} x {DENSE_LANDMARKS}, ppe {PPE}: "
+        f"use_pallas=False on the card == K1 route on {len(k1_route)} "
+        f"simplices ({n_inf} inf), max |diff| {dense_err}; dense run "
+        f"{dense_s:.3f}s host clock (engine built in the run)")
+    del C32, LC, k1_route, dense_route
+    log(f"dense phase: {time.perf_counter() - t_phase:.1f}s")
+
     no_lib = "none: no single PyTorch call computes this function"
     kernels = [
         {
@@ -543,6 +873,9 @@ def main():
             "admitted_units": units, "inball_pairs": inball,
             "ms_at_100k_x_300": k1_small_ms,
             "bound_ms_at_100k_x_300": k3_small_bound,
+            "max_abs_err_by_dim": {str(d): e for d, e in k1_dim_err.items()},
+            "ms_5d_200k_x_64": k1_5d_ms, "bound_ms_5d_200k_x_64": k1_5d_bound,
+            "bound_by_5d": k1_5d_by,
         },
         {
             "name": "fps", "route": "cuda",
@@ -555,6 +888,12 @@ def main():
             "library_note": no_lib, "chunk_visits": visits,
             "us_per_step": 1e3 * k2_ms / (N_LANDMARKS - 1),
             "max_abs_err_many_chunks": fps_err_many,
+            "max_abs_err_float64": fps64_err,
+            "max_abs_err_float64_many_chunks": fps64_err_many,
+            "ms_float64": k2_64_ms,
+            "us_per_step_float64": 1e3 * k2_64_ms / (N_LANDMARKS - 1),
+            "plain_ms_float64": k2_64_plain, "bound_ms_float64": k2_64_bound,
+            "bound_by_float64": k2_64_by, "chunk_visits_float64": visits64,
         },
         {
             "name": "flood_min_stats", "route": "cuda",
@@ -573,6 +912,7 @@ def main():
             "plain_ms_on_blocks": k3_slice_plain,
             "computed_tiles": k3_tiles, "admitted_subchunks": k3_subchunks,
             "visited_pairs": k3_visited,
+            "max_abs_err_by_dim": {str(d): e for d, e in k3_dim_err.items()},
         },
     ]
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f}s")

@@ -8,15 +8,23 @@ On a CUDA device FPS and the reduction run through the hand-written
 kernels K2 (``csrc/fps.cu``) and K1 (``csrc/flood.cu``); on the CPU the
 same code runs their plain PyTorch versions.
 
-Not ported yet, and raising ``NotImplementedError`` when asked for: the
-dense engine (``use_pallas=False`` / ``use_triton=False``), float64 input
-(which needs the dense engine) and multi-device meshes (``mesh=``).
+Engines, as the reference routes them: a float32 cloud takes the kernel
+engine (K1) by default, on the card and on the CPU; ``use_pallas=False``
+(or ``use_triton=False``) and every float64 cloud take the dense engine
+(``ops/flood.py``: torch ops on the card, the native reduction on the
+CPU), and float64 warns that it may be slow; ``use_pallas=True`` with
+float64 raises ``TypeError``. FPS of a CUDA float64 cloud runs K2's double
+instance.
+
+Not ported yet, and raising ``NotImplementedError`` when asked for:
+multi-device meshes (``mesh=``).
 """
 
 from __future__ import annotations
 
 import itertools
 import threading
+import warnings
 import weakref
 from functools import lru_cache
 from numbers import Integral
@@ -27,10 +35,12 @@ import torch
 
 from .ops.cuda_flood import CudaFloodEngine
 from .ops.cuda_fps import cuda_farthest_point_sampling
-from .ops.flood import simplex_bounding_balls
+from .ops.flood import DenseFloodEngine, simplex_bounding_balls
 from .topology import DelaunayComplex, SimplexTree
 from .utils.device import DeviceLike, as_tensor
 from .utils.stagetimer import fence, stage
+
+SUPPORTED_DTYPES = (torch.float32, torch.float64)
 
 # Engine cache: repeat flood_complex calls on the SAME witness tensor skip
 # the witness ordering. The filtration does not depend on the engine's
@@ -42,6 +52,16 @@ from .utils.stagetimer import fence, stage
 _ENGINE_CACHE: List[tuple] = []
 _ENGINE_CACHE_CAP = 2
 _ENGINE_CACHE_LOCK = threading.Lock()
+
+
+def _auto_wchunk(n_points: int) -> int:
+    """The dense engine's witness chunk for a cloud of ``n_points``: small
+    clouds get small chunks, so narrow windows drag in few padded
+    witnesses."""
+    c = 128
+    while c < 4096 and c * 64 < n_points:
+        c *= 2
+    return c
 
 
 def _cached_engine(points, key, build):
@@ -160,8 +180,8 @@ def generate_landmarks(
 ) -> torch.Tensor:
     """Select landmarks by exact greedy farthest-point sampling.
 
-    A CUDA float32 cloud runs kernel K2; a CPU cloud runs the plain
-    version. ``fps_h`` (the bucket height of the original flooder's
+    A CUDA float32 or float64 cloud runs kernel K2; a CPU cloud runs the
+    plain version. ``fps_h`` (the bucket height of the original flooder's
     approximate FPS) is accepted and ignored.
 
     Args:
@@ -234,21 +254,24 @@ def flood_complex(
     (or on random samples) of each simplex.
 
     Args:
-        points: (N, d) float32 witnesses (numpy array or tensor).
+        points: (N, d) float32 or float64 witnesses (numpy array or
+            tensor).
         landmarks: a landmark count (FPS-sampled from ``points``) or
             explicit (L, d) landmark coordinates.
         max_dimension: top simplex dimension (default: ambient dimension).
         points_per_edge: grid resolution per edge (grid mode, default 30).
         num_rand: if set, this many random samples per simplex instead of
             the grid (weights from the host numpy RNG).
-        batch_size: accepted for API compatibility; the kernel's block
-            geometry is fixed.
-        use_pallas / use_triton: None or True select the hand-written
-            kernel engine; False (the dense engine) is not ported yet.
+        batch_size: simplices per batch of the dense engine (None: all);
+            the kernel engine's block geometry is fixed.
+        use_pallas / use_triton: None selects the kernel engine for
+            float32 and the dense engine for float64; True forces the
+            kernel engine (float32 only), False the dense engine.
         return_simplex_tree: return a SimplexTree instead of a dict.
         fps_h: ignored (see generate_landmarks).
         start_idx: FPS start index (None = random, host numpy RNG).
-        wchunk: accepted for API compatibility; the chunk length is fixed.
+        wchunk: witness chunk of the dense engine (None: by cloud size);
+            the kernel engine's chunk is fixed.
         mesh: multi-device meshes are not ported yet.
         landmarks_in_cloud: every landmark is one of ``points``, which
             enables the exact nearest-vertex bound. Auto-True when the
@@ -260,25 +283,27 @@ def flood_complex(
     """
     if use_triton is not None and use_pallas is None:
         use_pallas = use_triton
-    if use_pallas is False:
-        raise NotImplementedError(
-            "the dense flood engine (use_pallas=False) is not ported to "
-            "flooder_tpu_torch yet; it is a later slice"
-        )
     if mesh is not None:
         raise NotImplementedError(
             "multi-device meshes are not ported to flooder_tpu_torch yet"
         )
-    del batch_size, wchunk
 
     points = as_tensor(points, device=device)
-    if points.dtype == torch.float64:
-        raise NotImplementedError(
-            "float64 needs the dense flood engine, which is not ported to "
-            "flooder_tpu_torch yet; it is a later slice"
-        )
-    if points.dtype != torch.float32:
+    if points.dtype not in SUPPORTED_DTYPES:
         raise TypeError(f"dtype ({points.dtype}) not supported")
+    dtype = points.dtype
+    if dtype == torch.float64:
+        if use_pallas:
+            raise TypeError("the kernel flood engine takes float32 only; "
+                            "float64 runs the dense engine")
+        warnings.warn(
+            "Using float64 on accelerator backends might be slow",
+            RuntimeWarning,
+            stacklevel=2,
+        )
+    dense = use_pallas is False or dtype == torch.float64
+    if wchunk is None:
+        wchunk = _auto_wchunk(points.shape[0])
     if max_dimension is None:
         max_dimension = points.shape[1]
     if isinstance(landmarks, Integral):
@@ -309,9 +334,15 @@ def flood_complex(
     # Build the engine before the host Delaunay: its witness ordering is
     # queued on the device and runs while the host triangulates.
     with stage("engine-init"):
-        engine = _cached_engine(
-            points, ("cuda-flood",), lambda: CudaFloodEngine(points)
-        )
+        if dense:
+            engine = _cached_engine(
+                points, ("dense", wchunk),
+                lambda: DenseFloodEngine(points, wchunk),
+            )
+        else:
+            engine = _cached_engine(
+                points, ("cuda-flood",), lambda: CudaFloodEngine(points)
+            )
 
     with stage("delaunay"):
         stree = DelaunayComplex(lms_host).create_simplex_tree()
@@ -339,18 +370,26 @@ def flood_complex(
             radii = radii[order]
             simplices_sorted = d_simplices[order_host]
 
+        bsz = num_simplices if batch_size is None else int(batch_size)
         if num_rand is None:
             weights, vertex_idxs, face_idxs = _grid_host(
                 points_per_edge, max_dimension
             )
             with stage(f"dim{d}:distances"):
-                fvals_all = [
-                    f.cpu().numpy()
-                    for f in engine.min_distances_facemax(
+                if dense:
+                    dists = engine.min_distances(
+                        sim_verts, weights, centers, radii, bsz
+                    )  # (S, R)
+                    faces_max = [
+                        dists[:, torch.as_tensor(t, device=dev)].amax(-1)
+                        for t in face_idxs
+                    ]
+                else:
+                    faces_max = engine.min_distances_facemax(
                         sim_verts, weights, centers, radii, tight=tight,
                         face_tables=face_idxs,
                     )
-                ]
+                fvals_all = [f.cpu().numpy() for f in faces_max]
             with stage(f"dim{d}:assembly"):
                 # A face shared by several top simplices takes the min of
                 # their ball-restricted estimates (order independent).
@@ -363,12 +402,19 @@ def flood_complex(
                     )
                     stree.assign_filtrations(face_dim, uniq_faces, min_vals)
         else:
-            weights = generate_uniform_weights(num_rand, d, device="cpu")
+            weights = generate_uniform_weights(num_rand, d, device="cpu",
+                                               dtype=dtype)
             with stage(f"dim{d}:distances"):
-                vals_host = engine.min_distances_facemax(
-                    sim_verts, weights, centers, radii, tight=tight,
-                    face_tables=None,
-                ).cpu().numpy()
+                if dense:
+                    vals = engine.min_distances(
+                        sim_verts, weights, centers, radii, bsz
+                    ).amax(-1)
+                else:
+                    vals = engine.min_distances_facemax(
+                        sim_verts, weights, centers, radii, tight=tight,
+                        face_tables=None,
+                    )
+                vals_host = vals.cpu().numpy()
             with stage(f"dim{d}:assembly"):
                 stree.assign_filtrations(d, simplices_sorted, vals_host)
 

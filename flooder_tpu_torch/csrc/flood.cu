@@ -57,10 +57,14 @@
 // Arithmetic: the difference form in fp32 (flood_common.cuh; no tensor
 // cores: the |x|^2 - 2x.y + |y|^2 form breaks the oracle tolerance,
 // pallas_flood.py:51-56); the ball, box and tile tests explicitly rounded
-// as in the plain version. 3 * (3e18)^2 ~ 2.7e37 stays finite in fp32, and
-// outputs >= 1e30 mean "no witness in the ball". The caller gets per-CTA
-// counts of admitted units and of in-ball pairs, from which the bound is
-// computed.
+// as in the plain version. DIM * (3e18)^2, at most 7.2e37 at DIM 8, stays
+// finite in fp32 (flood_common.cuh), and outputs >= 1e30 mean "no witness
+// in the ball". The caller gets per-CTA counts of admitted units and of
+// in-ball pairs, from which the bound is computed.
+//
+// Built for 1-8 coordinates, K2's range. At 5-8 a staged witness is two
+// float4 (the pair loop reads it with two LDS.128), and at 8 the raw fetch
+// buffer moves to dynamic shared memory; the code for 1-4 is unchanged.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -95,9 +99,13 @@ __global__ void __launch_bounds__(MAX_RT / SPT) flood_min_kernel(
     long long *__restrict__ stats,        // (n_blk * NR, 2)
     int nr, int rt, int bs, int spc) {
   // raw: each lane's own slots of the next sub-chunk (cp.async target, read
-  // back only by the lane that fetched them); wsh: the staged tile
-  __shared__ __align__(16) float raw[SUB * DIM];
-  __shared__ float4 wsh[2][SUB];
+  // back only by the lane that fetched them), in dynamic shared memory where
+  // it would not fit beside wsh (raw_dynamic); wsh: the staged tile
+  constexpr bool RAW_DYN = flood::raw_dynamic<DIM>();
+  __shared__ __align__(16) float raw_static[RAW_DYN ? 4 : SUB * DIM];
+  extern __shared__ __align__(16) float raw_dyn[];
+  float *raw = RAW_DYN ? raw_dyn : raw_static;
+  __shared__ flood::Staged<DIM> wsh[2][SUB];
   __shared__ int segcnt[2][NSEG];
   __shared__ float wmax[2][MAX_WARPS];
 
@@ -220,10 +228,18 @@ cudaError_t launch(const float *samples, const float *witnesses,
                    int spc, cudaStream_t stream, long long *launched) {
   const long long ctas = (long long)n_blk * nr;
   if (ctas == 0) return cudaSuccess;
-  flood_min_kernel<DIM><<<(unsigned)ctas, rt / SPT, 0, stream>>>(
+  const size_t smem =
+      flood::raw_dynamic<DIM>() ? (size_t)SUB * DIM * sizeof(float) : 0;
+  cudaError_t e = cudaSuccess;
+  if (smem)
+    e = cudaFuncSetAttribute(flood_min_kernel<DIM>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+  if (e != cudaSuccess) return e;
+  flood_min_kernel<DIM><<<(unsigned)ctas, rt / SPT, smem, stream>>>(
       samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, tile_hi,
       ub2, blk_ptr, blk_chunks, cta_order, out, stats, nr, rt, bs, spc);
-  const cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e == cudaSuccess) ++*launched;
   return e;
 }
@@ -239,7 +255,7 @@ const char *flooder_cuda_error_string(int code) {
 int flood_sub() { return SUB; }
 
 // Launch K1 on `stream`. `rt` must be a multiple of 128 and at most 512;
-// `dim` 1..4; `cta_order` a permutation of the blocks (CTA row i runs block
+// `dim` 1..8; `cta_order` a permutation of the blocks (CTA row i runs block
 // cta_order[i]); `witnesses` 16-byte aligned. *launched is set to the
 // number of kernel launches enqueued without error (0 when there is no
 // CTA). Returns 0 or the CUDA launch error.
@@ -257,31 +273,23 @@ int flood_min_launch(const float *samples, const float *witnesses,
       reinterpret_cast<uintptr_t>(witnesses) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FLOOD_MIN_LAUNCH(D)                                                 \
+  launch<D>(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,    \
+            tile_hi, ub2, blk_ptr, blk_chunks, cta_order, out, stats, n_blk, \
+            nr, rt, bs, subs_per_chunk, s, launched)
   cudaError_t e;
   switch (dim) {
-    case 1:
-      e = launch<1>(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, cta_order,
-                    out, stats, n_blk, nr, rt, bs, subs_per_chunk, s, launched);
-      break;
-    case 2:
-      e = launch<2>(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, cta_order,
-                    out, stats, n_blk, nr, rt, bs, subs_per_chunk, s, launched);
-      break;
-    case 3:
-      e = launch<3>(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, cta_order,
-                    out, stats, n_blk, nr, rt, bs, subs_per_chunk, s, launched);
-      break;
-    case 4:
-      e = launch<4>(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks, cta_order,
-                    out, stats, n_blk, nr, rt, bs, subs_per_chunk, s, launched);
-      break;
-    default:
-      e = cudaErrorInvalidValue;
+    case 1: e = FLOOD_MIN_LAUNCH(1); break;
+    case 2: e = FLOOD_MIN_LAUNCH(2); break;
+    case 3: e = FLOOD_MIN_LAUNCH(3); break;
+    case 4: e = FLOOD_MIN_LAUNCH(4); break;
+    case 5: e = FLOOD_MIN_LAUNCH(5); break;
+    case 6: e = FLOOD_MIN_LAUNCH(6); break;
+    case 7: e = FLOOD_MIN_LAUNCH(7); break;
+    case 8: e = FLOOD_MIN_LAUNCH(8); break;
+    default: e = cudaErrorInvalidValue;
   }
+#undef FLOOD_MIN_LAUNCH
   return static_cast<int>(e);
 }
 

@@ -20,17 +20,21 @@
 // Staging. A sub-chunk of SUB witnesses is fetched raw with cp.async, each
 // lane copying its own slots (fetch_raw), and later staged ball-local into
 // a shared tile by the same lanes (stage_compacted), so the raw copy needs
-// no barrier. Staging compacts each SEGW-witness segment: in-ball
-// witnesses to the front (warp ballot + popc), out-of-ball ones (moved to
-// MASK) behind them. The inner loop (min_over_staged) runs over the
-// in-ball count rounded up to UNROLL, so padding slots hold out-of-ball
-// witnesses, and a sub-chunk with none in the ball folds in the one value
-// such a witness gives: min is exact, so the result is the min over all
-// SUB witnesses bit for bit.
+// no barrier. A staged witness is one float4 up to 4 coordinates and two
+// (Staged8) for 5-8, with the components past DIM at 0; the kernels are
+// built for 1-8 coordinates, K2's range. Staging compacts each
+// SEGW-witness segment: in-ball witnesses to the front (warp ballot +
+// popc), out-of-ball ones (moved to MASK) behind them. The inner loop
+// (min_over_staged) runs over the in-ball count rounded up to UNROLL, so
+// padding slots hold out-of-ball witnesses, and a sub-chunk with none in
+// the ball folds in the one value such a witness gives: min is exact, so
+// the result is the min over all SUB witnesses bit for bit.
 
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace flood {
 
@@ -40,6 +44,30 @@ constexpr int SEGW = 128;         // witnesses per staging segment (4 a lane)
 constexpr int NSEG = SUB / SEGW;  // segments per sub-chunk
 constexpr int UNROLL = 4;         // inner-loop unroll; counts round up to it
 constexpr unsigned FULL = 0xffffffffu;
+constexpr int MAX_DIM = 8;
+// A masked witness's d2 against a ball-local sample is about
+// DIM * MASK^2, 7.2e37 at DIM 8: under FLT_MAX (3.4e38) by a factor of 4.7,
+// so it stays finite and at or above the callers' 1e30 "no witness" mark.
+static_assert(MAX_DIM * 9e36f < 3.4e38f, "masked d2 must stay finite");
+
+// A staged witness of 5-8 coordinates: two float4, read as two LDS.128.
+struct __align__(16) Staged8 {
+  float4 lo, hi;
+};
+template <int DIM>
+using Staged = typename std::conditional<(DIM <= 4), float4, Staged8>::type;
+// Static shared memory a CTA may declare; past it a buffer goes dynamic.
+constexpr int STATIC_SMEM_LIMIT = 48 * 1024;
+
+// Whether a kernel keeps its raw fetch buffer (SUB * DIM floats) in dynamic
+// shared memory: beside the two staged tiles (and 1 KB for the kernel's
+// small arrays) it would pass the static limit. Only at DIM 8 (16,384 +
+// 32,768 B); at DIM 7 the two take 47,104 B.
+template <int DIM>
+__host__ __device__ constexpr bool raw_dynamic() {
+  return SUB * DIM * sizeof(float) + 2 * SUB * sizeof(Staged<DIM>) + 1024 >
+         STATIC_SMEM_LIMIT;
+}
 
 __device__ __forceinline__ float sq_add(float acc, float diff) {
   return __fadd_rn(acc, __fmul_rn(diff, diff));
@@ -48,34 +76,52 @@ __device__ __forceinline__ float sq_add(float acc, float diff) {
 __device__ __forceinline__ float comp(const float4 &v, int d) {
   return d == 0 ? v.x : d == 1 ? v.y : d == 2 ? v.z : v.w;
 }
+__device__ __forceinline__ float comp(const Staged8 &v, int d) {
+  return d < 4 ? comp(v.lo, d) : comp(v.hi, d - 4);
+}
+
+__device__ __forceinline__ void pack(const float (&v)[4], float4 &out) {
+  out = make_float4(v[0], v[1], v[2], v[3]);
+}
+__device__ __forceinline__ void pack(const float (&v)[8], Staged8 &out) {
+  out.lo = make_float4(v[0], v[1], v[2], v[3]);
+  out.hi = make_float4(v[4], v[5], v[6], v[7]);
+}
 
 // Witness y in ball-local coordinates (y - c), and whether it lies in the
 // ball (|y - c|^2 <= r2, summed in coordinate order). Components past DIM
 // are 0.
 template <int DIM>
 __device__ __forceinline__ bool ball_local(const float *y, const float *c,
-                                           float r2, float4 &yl) {
-  float v[4] = {0.f, 0.f, 0.f, 0.f};
+                                           float r2, Staged<DIM> &yl) {
+  constexpr int N = DIM <= 4 ? 4 : 8;
+  float v[N] = {};
   float y2 = 0.f;
 #pragma unroll
   for (int d = 0; d < DIM; ++d) {
     v[d] = __fsub_rn(y[d], c[d]);
     y2 = d == 0 ? __fmul_rn(v[d], v[d]) : sq_add(y2, v[d]);
   }
-  yl = make_float4(v[0], v[1], v[2], v[3]);
+  pack(v, yl);
   return y2 <= r2;
 }
 
 // The staged form of an out-of-ball witness.
 template <int DIM>
-__device__ __forceinline__ float4 masked() {
-  return make_float4(MASK, DIM > 1 ? MASK : 0.f, DIM > 2 ? MASK : 0.f,
-                     DIM > 3 ? MASK : 0.f);
+__device__ __forceinline__ Staged<DIM> masked() {
+  constexpr int N = DIM <= 4 ? 4 : 8;
+  float v[N];
+#pragma unroll
+  for (int d = 0; d < N; ++d) v[d] = d < DIM ? MASK : 0.f;
+  Staged<DIM> m;
+  pack(v, m);
+  return m;
 }
 
 // Squared distance from sample x to a staged witness y, coordinate order.
 template <int DIM>
-__device__ __forceinline__ float pair_d2(const float4 &y, const float *x) {
+__device__ __forceinline__ float pair_d2(const Staged<DIM> &y,
+                                         const float *x) {
   const float d0 = __fsub_rn(comp(y, 0), x[0]);
   float d2 = __fmul_rn(d0, d0);
 #pragma unroll
@@ -153,18 +199,19 @@ __device__ __forceinline__ void fetch_raw(float *raw, const float *witnesses,
 }
 
 // Stage the sub-chunk that fetch_raw brought into `raw` into `dst` (SUB
-// float4), ball-local and compacted per segment; segcnt[seg] is the
+// staged witnesses), ball-local and compacted per segment; segcnt[seg] is the
 // segment's in-ball count. Readers need a barrier after it.
 template <int DIM>
 __device__ __forceinline__ void stage_compacted(const float *raw,
                                                 const float *c, float r2,
-                                                float4 *dst, int *segcnt,
+                                                Staged<DIM> *dst,
+                                                int *segcnt,
                                                 int warp, int nw, int lane) {
   cp_async_wait_all();
   const unsigned lanes_below = (1u << lane) - 1u;
   for (int seg = warp; seg < NSEG; seg += nw) {
     const float *own = raw + (size_t)(seg * SEGW + 4 * lane) * DIM;
-    float4 yl[4];
+    Staged<DIM> yl[4];
     bool in[4];
     int below = 0, cnt = 0;
 #pragma unroll
@@ -174,7 +221,7 @@ __device__ __forceinline__ void stage_compacted(const float *raw,
       below += __popc(bal & lanes_below);
       cnt += __popc(bal);
     }
-    float4 *seg_dst = dst + seg * SEGW;
+    Staged<DIM> *seg_dst = dst + seg * SEGW;
     int nin = below, nout = 4 * lane - below;
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -189,7 +236,7 @@ __device__ __forceinline__ void stage_compacted(const float *raw,
 // acc[k] = min(acc[k], d2 from sample x[k] to every witness of a staged
 // sub-chunk): the inner loop. Returns the sub-chunk's in-ball count.
 template <int DIM, int SPT>
-__device__ __forceinline__ int min_over_staged(const float4 *wsh,
+__device__ __forceinline__ int min_over_staged(const Staged<DIM> *wsh,
                                                const int *segcnt,
                                                float (&x)[SPT][DIM],
                                                float (&acc)[SPT]) {
@@ -198,10 +245,10 @@ __device__ __forceinline__ int min_over_staged(const float4 *wsh,
     const int n = segcnt[seg];
     total += n;
     const int n_pad = (n + UNROLL - 1) / UNROLL * UNROLL;
-    const float4 *ys = wsh + seg * SEGW;
+    const Staged<DIM> *ys = wsh + seg * SEGW;
 #pragma unroll 4
     for (int w = 0; w < n_pad; ++w) {
-      const float4 yv = ys[w];
+      const Staged<DIM> yv = ys[w];
 #pragma unroll
       for (int k = 0; k < SPT; ++k)
         acc[k] = fminf(acc[k], pair_d2<DIM>(yv, x[k]));
@@ -209,7 +256,7 @@ __device__ __forceinline__ int min_over_staged(const float4 *wsh,
   }
   if (total == 0) {
     // every witness is out of the ball: they all give this value
-    const float4 m = masked<DIM>();
+    const Staged<DIM> m = masked<DIM>();
 #pragma unroll
     for (int k = 0; k < SPT; ++k)
       acc[k] = fminf(acc[k], pair_d2<DIM>(m, x[k]));

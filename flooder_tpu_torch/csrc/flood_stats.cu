@@ -102,13 +102,17 @@ __global__ void __launch_bounds__(G * MAX_RT / SPT) flood_stats_kernel(
   // mins: the simplex's running mins (nr, rt); wmax: two buffers of
   // (nr, MAX_GROUP_WARPS), per tile and group warp that warp's max of the
   // tile's running mins
-  extern __shared__ float dyn[];
+  extern __shared__ __align__(16) float dyn[];
   float *mins = dyn;
   float *wmax = dyn + nr * rt;
-  // raw: each lane's own slots of the next sub-chunk (cp.async target);
-  // wsh: the staged tile, two buffers
-  __shared__ __align__(16) float raw[SUB * DIM];
-  __shared__ float4 wsh[2][SUB];
+  // raw: each lane's own slots of the next sub-chunk (cp.async target), in
+  // dynamic shared memory after wmax where it would not fit beside wsh
+  // (raw_dynamic; nr * rt + 2 * nr * MAX_GROUP_WARPS floats keep it 16-byte
+  // aligned); wsh: the staged tile, two buffers
+  constexpr bool RAW_DYN = flood::raw_dynamic<DIM>();
+  __shared__ __align__(16) float raw_static[RAW_DYN ? 4 : SUB * DIM];
+  float *raw = RAW_DYN ? wmax + 2 * nr * MAX_GROUP_WARPS : raw_static;
+  __shared__ flood::Staged<DIM> wsh[2][SUB];
   __shared__ int segcnt[2][NSEG];
 
   const int s = sim_order[blockIdx.x];
@@ -287,7 +291,9 @@ cudaError_t launch(const float *samples, const float *witnesses,
                    int spc, cudaStream_t stream, long long *launched) {
   if (s_total == 0) return cudaSuccess;
   const size_t smem =
-      ((size_t)nr * rt + 2 * (size_t)nr * MAX_GROUP_WARPS) * sizeof(float);
+      ((size_t)nr * rt + 2 * (size_t)nr * MAX_GROUP_WARPS +
+       (flood::raw_dynamic<DIM>() ? (size_t)SUB * DIM : 0)) *
+      sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
       flood_stats_kernel<DIM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
@@ -313,11 +319,11 @@ int flood_stats_sub() { return SUB; }
 
 // Launch K3 on `stream`: one CTA per simplex row, CTA i on simplex
 // sim_order[i] (a permutation of the rows). `rt` must be a multiple of 128
-// and at most 512; `dim` 1..4; `witnesses` 16-byte aligned; the simplex's
-// running mins and tile maxima, (nr * rt + 8 * nr) floats, must fit the
-// CTA's shared memory. *launched is set to the number of kernel launches
-// enqueued without error (0 when there is no simplex). Returns 0 or the
-// CUDA error.
+// and at most 512; `dim` 1..8; `witnesses` 16-byte aligned; the simplex's
+// running mins and tile maxima, (nr * rt + 8 * nr) floats (and at DIM 8 the
+// raw fetch buffer, SUB * 8 floats), must fit the CTA's shared memory.
+// *launched is set to the number of kernel launches enqueued without error
+// (0 when there is no simplex). Returns 0 or the CUDA error.
 int flood_stats_launch(const float *samples, const float *witnesses,
                        const float *sub_lo, const float *sub_hi,
                        const float *centers, const float *radii,
@@ -342,6 +348,10 @@ int flood_stats_launch(const float *samples, const float *witnesses,
     case 2: e = FLOOD_STATS_LAUNCH(2); break;
     case 3: e = FLOOD_STATS_LAUNCH(3); break;
     case 4: e = FLOOD_STATS_LAUNCH(4); break;
+    case 5: e = FLOOD_STATS_LAUNCH(5); break;
+    case 6: e = FLOOD_STATS_LAUNCH(6); break;
+    case 7: e = FLOOD_STATS_LAUNCH(7); break;
+    case 8: e = FLOOD_STATS_LAUNCH(8); break;
     default: e = cudaErrorInvalidValue;
   }
 #undef FLOOD_STATS_LAUNCH

@@ -15,9 +15,9 @@
 // from one step to the next sets the time, not bytes or operations. The
 // design runs the whole loop as ONE persistent cooperative kernel: CTA g
 // owns chunks g, g+G, ... (G co-resident CTAs, from the occupancy query),
-// keeps its first chunk's running min d^2 and, up to 5 coordinates, its
-// points in shared memory, and per step folds the landmark into its
-// chunks that pass the box test, publishes its chunks' (max, argmax) in
+// keeps its first chunk's running min d^2 and, up to 5 coordinates (in
+// float), its points in shared memory, and per step folds the landmark into
+// its chunks that pass the box test, publishes its chunks' (max, argmax) in
 // one of two exchange buffers chosen by step parity, and meets the other
 // CTAs at one grid barrier. After the barrier every CTA reduces all
 // candidates with the same tie rule, so all agree on the next landmark
@@ -27,11 +27,16 @@
 // cannot be. What is left per step is a chain of device-memory round trips
 // (the landmark's coordinates, the barrier's counter, the candidates) and
 // block reductions, not work. The kernel is compiled per coordinate count,
-// so a fold issues no instruction for absent coordinates.
+// so a fold issues no instruction for absent coordinates, and per scalar
+// type: float and double clouds of 1-8 coordinates (past 8 the wrapper
+// raises). The double instance keeps the same loop, tie rule and skips; it
+// caches its first chunk's points in shared memory only where they fit the
+// same byte budget (MAX_CACHED_BYTES), i.e. up to 2 coordinates.
 
 // Arithmetic: every square and sum is an explicitly rounded multiply and
 // add (no FMA contraction), so the box bound is a true lower bound of the
-// computed point distances and results equal the plain PyTorch version's.
+// computed point distances and results equal the plain PyTorch version's,
+// in either type.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -45,9 +50,51 @@ constexpr int THREADS = 1024;
 // traps instead of hanging the card.
 constexpr unsigned long long SPIN_LIMIT = 1ull << 24;
 
+// Explicitly rounded arithmetic and limits in either scalar type.
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float add_rn(float a, float b) {
+  return __fadd_rn(a, b);
+}
+__device__ __forceinline__ double add_rn(double a, double b) {
+  return __dadd_rn(a, b);
+}
+__device__ __forceinline__ float min_of(float a, float b) {
+  return fminf(a, b);
+}
+__device__ __forceinline__ double min_of(double a, double b) {
+  return fmin(a, b);
+}
+__device__ __forceinline__ float max_of(float a, float b) {
+  return fmaxf(a, b);
+}
+__device__ __forceinline__ double max_of(double a, double b) {
+  return fmax(a, b);
+}
+template <typename T>
+__device__ __forceinline__ T pos_inf();
+template <>
+__device__ __forceinline__ float pos_inf<float>() {
+  return CUDART_INF_F;
+}
+template <>
+__device__ __forceinline__ double pos_inf<double>() {
+  return CUDART_INF;
+}
+
 // (value, index) max with the lower index winning a tie
-__device__ __forceinline__ void argmax_combine(float &v, int &i, float v2,
-                                               int i2) {
+template <typename T>
+__device__ __forceinline__ void argmax_combine(T &v, int &i, T v2, int i2) {
   if (v2 > v || (v2 == v && i2 < i)) {
     v = v2;
     i = i2;
@@ -56,11 +103,11 @@ __device__ __forceinline__ void argmax_combine(float &v, int &i, float v2,
 
 // Block-wide argmax; thread 0 gets the result. Ends in a barrier, so the
 // scratch may be reused right after.
-__device__ __forceinline__ void block_argmax(float &v, int &i, float *sv,
-                                             int *si) {
+template <typename T>
+__device__ __forceinline__ void block_argmax(T &v, int &i, T *sv, int *si) {
   const unsigned full = 0xffffffffu;
   for (int off = 16; off > 0; off >>= 1) {
-    float v2 = __shfl_down_sync(full, v, off);
+    T v2 = __shfl_down_sync(full, v, off);
     int i2 = __shfl_down_sync(full, i, off);
     argmax_combine(v, i, v2, i2);
   }
@@ -72,10 +119,10 @@ __device__ __forceinline__ void block_argmax(float &v, int &i, float *sv,
   __syncthreads();
   if (warp == 0) {
     const int nwarps = (blockDim.x + 31) >> 5;
-    v = lane < nwarps ? sv[lane] : -CUDART_INF_F;
+    v = lane < nwarps ? sv[lane] : -pos_inf<T>();
     i = lane < nwarps ? si[lane] : INT32_MAX;
     for (int off = 16; off > 0; off >>= 1) {
-      float v2 = __shfl_down_sync(full, v, off);
+      T v2 = __shfl_down_sync(full, v, off);
       int i2 = __shfl_down_sync(full, i, off);
       argmax_combine(v, i, v2, i2);
     }
@@ -106,53 +153,60 @@ __device__ __forceinline__ void grid_sync(unsigned long long *bar,
 }
 
 // The kernel's operands (one struct, so that the cooperative launch passes
-// one argument).
+// one argument); T is the cloud's scalar type.
+template <typename T>
 struct FpsArgs {
-  const float *pts;     // (dim, npad) sorted cloud
+  const T *pts;     // (dim, npad) sorted cloud
   int npad, chunk;
-  const float *box_lo;  // (dim, nchunks)
-  const float *box_hi;
+  const T *box_lo;  // (dim, nchunks)
+  const T *box_hi;
   int nchunks;
-  float *mind2;         // (npad,) running min d^2, +inf
-  float *cmax;          // (nchunks,) chunk max, +inf
-  int *cbest;           // (nchunks,) chunk argmax
-  float *xv;            // (2, nchunks) exchange: max
-  int *xi;              // (2, nchunks) exchange: argmax
-  int *out;             // (n_samples,); out[0] = start
+  T *mind2;         // (npad,) running min d^2, +inf
+  T *cmax;          // (nchunks,) chunk max, +inf
+  int *cbest;       // (nchunks,) chunk argmax
+  T *xv;            // (2, nchunks) exchange: max
+  int *xi;          // (2, nchunks) exchange: argmax
+  int *out;         // (n_samples,); out[0] = start
   int n_samples;
   unsigned long long *visits;
   unsigned long long *bar;  // (1,) zero
 };
 
 // Dynamic shared memory: the running min d^2 of the CTA's first chunk and,
-// up to MAX_CACHED_DIM coordinates, that chunk's points (one CTA of
-// THREADS fills an SM, so the SM's shared memory is the CTA's to use).
-constexpr int MAX_CACHED_DIM = 5;
+// where the points and mins take at most MAX_CACHED_BYTES a point, that
+// chunk's points (one CTA of THREADS fills an SM, so the SM's shared memory
+// is the CTA's to use): float up to 5 coordinates, double up to 2, 192 KB
+// a CTA at most.
+constexpr int MAX_CACHED_BYTES = 24;
 
-template <int DIM>
+template <typename T, int DIM>
+__host__ __device__ constexpr bool cached() {
+  return (DIM + 1) * sizeof(T) <= MAX_CACHED_BYTES;
+}
+
+template <typename T, int DIM>
 size_t smem_bytes(int chunk) {
-  return (size_t)chunk * sizeof(float) * (DIM <= MAX_CACHED_DIM ? DIM + 1 : 1);
+  return (size_t)chunk * sizeof(T) * (cached<T, DIM>() ? DIM + 1 : 1);
 }
 
 // Fold the landmark into one chunk: points p[d * stride + j], running
 // mins m[j], j < chunk; returns the chunk's (max, argmax) to thread 0.
-template <int DIM>
-__device__ __forceinline__ void fold(const float *p, int stride, float *m,
-                                     int chunk, int base, const float *lm,
-                                     float &best, int &bidx, float *sv,
-                                     int *si) {
-  best = -CUDART_INF_F;
+template <typename T, int DIM>
+__device__ __forceinline__ void fold(const T *p, int stride, T *m, int chunk,
+                                     int base, const T *lm, T &best,
+                                     int &bidx, T *sv, int *si) {
+  best = -pos_inf<T>();
   bidx = INT32_MAX;
 #pragma unroll 4
   for (int j = threadIdx.x; j < chunk; j += THREADS) {
-    const float d0 = __fsub_rn(p[j], lm[0]);
-    float d2 = __fmul_rn(d0, d0);
+    const T d0 = sub_rn(p[j], lm[0]);
+    T d2 = mul_rn(d0, d0);
 #pragma unroll
     for (int d = 1; d < DIM; ++d) {
-      const float diff = __fsub_rn(p[d * stride + j], lm[d]);
-      d2 = __fadd_rn(d2, __fmul_rn(diff, diff));
+      const T diff = sub_rn(p[d * stride + j], lm[d]);
+      d2 = add_rn(d2, mul_rn(diff, diff));
     }
-    const float mm = fminf(m[j], d2);
+    const T mm = min_of(m[j], d2);
     m[j] = mm;
     if (mm > best) {  // indices grow within a thread: first max kept
       best = mm;
@@ -162,19 +216,19 @@ __device__ __forceinline__ void fold(const float *p, int stride, float *m,
   block_argmax(best, bidx, sv, si);
 }
 
-template <int DIM>
-__global__ void __launch_bounds__(THREADS) fps_loop(const FpsArgs a) {
-  constexpr bool CACHED = DIM <= MAX_CACHED_DIM;
-  extern __shared__ float dyn[];
-  float *mloc = dyn;          // running min d^2 of chunk blockIdx.x
-  float *ploc = dyn + a.chunk;  // its points, (DIM, chunk), if CACHED
-  __shared__ float sv[32];
+template <typename T, int DIM>
+__global__ void __launch_bounds__(THREADS) fps_loop(const FpsArgs<T> a) {
+  constexpr bool CACHED = cached<T, DIM>();
+  extern __shared__ __align__(16) unsigned char dyn_bytes[];
+  T *mloc = reinterpret_cast<T *>(dyn_bytes);  // running min d^2 of chunk g
+  T *ploc = mloc + a.chunk;  // its points, (DIM, chunk), if CACHED
+  __shared__ T sv[32];
   __shared__ int si[32];
   __shared__ int s_next;
   const int G = gridDim.x, g = blockIdx.x, tid = threadIdx.x;
-  const float *own = a.pts + (size_t)g * a.chunk;
+  const T *own = a.pts + (size_t)g * a.chunk;
   for (int j = tid; j < a.chunk; j += THREADS) {
-    mloc[j] = CUDART_INF_F;
+    mloc[j] = pos_inf<T>();
     if (CACHED) {
 #pragma unroll
       for (int d = 0; d < DIM; ++d)
@@ -186,40 +240,40 @@ __global__ void __launch_bounds__(THREADS) fps_loop(const FpsArgs a) {
   unsigned long long visits = 0;  // thread 0's count of chunk visits
   int cur = a.out[0];
   for (int step = 1; step < a.n_samples; ++step) {
-    float lm[DIM];
+    T lm[DIM];
 #pragma unroll
     for (int d = 0; d < DIM; ++d)
       lm[d] = __ldg(a.pts + (size_t)d * a.npad + cur);
     const int par = step & 1;
 
     for (int c = g; c < a.nchunks; c += G) {
-      float lb2 = 0.f;
+      T lb2 = 0;
 #pragma unroll
       for (int d = 0; d < DIM; ++d) {
-        const float gd = fmaxf(
-            fmaxf(__fsub_rn(__ldg(a.box_lo + d * a.nchunks + c), lm[d]),
-                  __fsub_rn(lm[d], __ldg(a.box_hi + d * a.nchunks + c))),
-            0.f);
-        lb2 = __fadd_rn(lb2, __fmul_rn(gd, gd));
+        const T gd = max_of(
+            max_of(sub_rn(__ldg(a.box_lo + d * a.nchunks + c), lm[d]),
+                   sub_rn(lm[d], __ldg(a.box_hi + d * a.nchunks + c))),
+            T(0));
+        lb2 = add_rn(lb2, mul_rn(gd, gd));
       }
       // this CTA alone writes cmax[c] / cbest[c] (thread 0, before a
       // barrier)
-      float cm = __ldcg(a.cmax + c);
+      T cm = __ldcg(a.cmax + c);
       int cb = __ldcg(a.cbest + c);
       // strict <: when the bound equals the chunk max no member can drop
       if (lb2 < cm) {  // uniform over the block
         const int base = c * a.chunk;
-        float best;
+        T best;
         int bidx;
         if (c == g && CACHED)
-          fold<DIM>(ploc, a.chunk, mloc, a.chunk, base, lm, best, bidx, sv,
-                    si);
+          fold<T, DIM>(ploc, a.chunk, mloc, a.chunk, base, lm, best, bidx,
+                       sv, si);
         else if (c == g)
-          fold<DIM>(own, a.npad, mloc, a.chunk, base, lm, best, bidx, sv,
-                    si);
+          fold<T, DIM>(own, a.npad, mloc, a.chunk, base, lm, best, bidx, sv,
+                       si);
         else
-          fold<DIM>(a.pts + base, a.npad, a.mind2 + base, a.chunk, base, lm,
-                    best, bidx, sv, si);
+          fold<T, DIM>(a.pts + base, a.npad, a.mind2 + base, a.chunk, base,
+                       lm, best, bidx, sv, si);
         if (tid == 0) {
           cm = best;
           cb = bidx;
@@ -239,7 +293,7 @@ __global__ void __launch_bounds__(THREADS) fps_loop(const FpsArgs a) {
     // every CTA: global argmax over the chunk maxima. A chunk's argmax is
     // its lowest lane and chunks hold increasing sorted indices, so the
     // lowest index on a tie is the lowest chunk, then the lowest lane.
-    float best = -CUDART_INF_F;
+    T best = -pos_inf<T>();
     int bidx = INT32_MAX;
     for (int c = tid; c < a.nchunks; c += THREADS)
       argmax_combine(best, bidx, __ldcg(a.xv + par * a.nchunks + c),
@@ -255,8 +309,8 @@ __global__ void __launch_bounds__(THREADS) fps_loop(const FpsArgs a) {
   if (tid == 0 && visits) atomicAdd(a.visits, visits);  // instrumentation
 }
 
-// SMs x resident CTAs per SM for fps_loop<DIM> (occupancy query).
-template <int DIM>
+// SMs x resident CTAs per SM for fps_loop<T, DIM> (occupancy query).
+template <typename T, int DIM>
 cudaError_t coresident(int chunk, int *ctas) {
   int dev, sms, per_sm, coop;
   cudaError_t e = cudaGetDevice(&dev);
@@ -266,39 +320,68 @@ cudaError_t coresident(int chunk, int *ctas) {
     e = cudaDeviceGetAttribute(&coop, cudaDevAttrCooperativeLaunch, dev);
   if (e == cudaSuccess && !coop) e = cudaErrorNotSupported;
   if (e == cudaSuccess)
-    e = cudaFuncSetAttribute(fps_loop<DIM>,
+    e = cudaFuncSetAttribute(fps_loop<T, DIM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes<DIM>(chunk));
+                             (int)smem_bytes<T, DIM>(chunk));
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fps_loop<DIM>, THREADS, smem_bytes<DIM>(chunk));
+        &per_sm, fps_loop<T, DIM>, THREADS, smem_bytes<T, DIM>(chunk));
   if (e == cudaSuccess) *ctas = sms * per_sm;
   return e;
 }
 
-template <int DIM>
-cudaError_t run(FpsArgs a, cudaStream_t stream, long long *launched) {
+template <typename T, int DIM>
+cudaError_t run(FpsArgs<T> a, cudaStream_t stream, long long *launched) {
   int ctas = 0;
-  cudaError_t e = coresident<DIM>(a.chunk, &ctas);
+  cudaError_t e = coresident<T, DIM>(a.chunk, &ctas);
   if (e != cudaSuccess) return e;
   if (ctas < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int G = a.nchunks < ctas ? a.nchunks : ctas;
   void *args[] = {&a};
-  e = cudaLaunchCooperativeKernel(reinterpret_cast<void *>(fps_loop<DIM>),
+  e = cudaLaunchCooperativeKernel(reinterpret_cast<void *>(fps_loop<T, DIM>),
                                   dim3(G), dim3(THREADS), args,
-                                  smem_bytes<DIM>(a.chunk), stream);
+                                  smem_bytes<T, DIM>(a.chunk), stream);
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e == cudaSuccess) ++*launched;
   return e;
 }
 
-using CoresidentFn = cudaError_t (*)(int, int *);
-using RunFn = cudaError_t (*)(FpsArgs, cudaStream_t, long long *);
-constexpr CoresidentFn CORESIDENT[MAX_DIM] = {
-    coresident<1>, coresident<2>, coresident<3>, coresident<4>,
-    coresident<5>, coresident<6>, coresident<7>, coresident<8>};
-constexpr RunFn RUN[MAX_DIM] = {run<1>, run<2>, run<3>, run<4>,
-                                run<5>, run<6>, run<7>, run<8>};
+template <typename T>
+struct ByDim {
+  using CoresidentFn = cudaError_t (*)(int, int *);
+  using RunFn = cudaError_t (*)(FpsArgs<T>, cudaStream_t, long long *);
+  static constexpr CoresidentFn CORESIDENT[MAX_DIM] = {
+      coresident<T, 1>, coresident<T, 2>, coresident<T, 3>, coresident<T, 4>,
+      coresident<T, 5>, coresident<T, 6>, coresident<T, 7>, coresident<T, 8>};
+  static constexpr RunFn RUN[MAX_DIM] = {run<T, 1>, run<T, 2>, run<T, 3>,
+                                         run<T, 4>, run<T, 5>, run<T, 6>,
+                                         run<T, 7>, run<T, 8>};
+};
+
+template <typename T>
+cudaError_t run_typed(const void *pts, int dim, int npad, int chunk,
+                      const void *box_lo, const void *box_hi, int nchunks,
+                      void *mind2, void *cmax, int *cbest, void *xv, int *xi,
+                      int *out, int n_samples, unsigned long long *visits,
+                      unsigned long long *bar, cudaStream_t stream,
+                      long long *launched) {
+  const FpsArgs<T> a{static_cast<const T *>(pts),
+                     npad,
+                     chunk,
+                     static_cast<const T *>(box_lo),
+                     static_cast<const T *>(box_hi),
+                     nchunks,
+                     static_cast<T *>(mind2),
+                     static_cast<T *>(cmax),
+                     cbest,
+                     static_cast<T *>(xv),
+                     xi,
+                     out,
+                     n_samples,
+                     visits,
+                     bar};
+  return ByDim<T>::RUN[dim - 1](a, stream, launched);
+}
 
 }  // namespace
 
@@ -309,33 +392,43 @@ const char *flooder_cuda_error_string(int code) {
 }
 
 // The number of K2 CTAs the current device holds at once for `dim`
-// coordinates and chunks of `chunk` points: SMs x resident blocks per SM
-// (occupancy query). Returns 0 or the CUDA error.
-int fps_coresident_ctas(int dim, int chunk, int *ctas) {
+// coordinates of a float (`is_double` 0) or double (1) cloud and chunks of
+// `chunk` points: SMs x resident blocks per SM (occupancy query). Returns 0
+// or the CUDA error.
+int fps_coresident_ctas(int dim, int is_double, int chunk, int *ctas) {
   *ctas = 0;
   if (dim < 1 || dim > MAX_DIM) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(CORESIDENT[dim - 1](chunk, ctas));
+  return static_cast<int>(
+      is_double ? ByDim<double>::CORESIDENT[dim - 1](chunk, ctas)
+                : ByDim<float>::CORESIDENT[dim - 1](chunk, ctas));
 }
 
 // Run steps 1..n_samples-1 of the greedy loop on `stream` as one
-// cooperative launch of min(nchunks, co-resident CTAs) CTAs. The caller
-// has set mind2 = cmax = +inf, out[0] = the sorted start index, *visits =
-// 0 and *bar = 0. *launched is set to the number of kernel launches
-// enqueued without error (0 for one sample). Returns 0 or the CUDA error;
-// a grid that cannot be co-resident is an error, never run another way.
-int fps_run(const float *pts, int dim, int npad, int chunk,
-            const float *box_lo, const float *box_hi, int nchunks,
-            float *mind2, float *cmax, int *cbest, float *xv, int *xi,
-            int *out, int n_samples, unsigned long long *visits,
+// cooperative launch of min(nchunks, co-resident CTAs) CTAs. The point,
+// box, running-min and exchange-max buffers are float (`is_double` 0) or
+// double (1). The caller has set mind2 = cmax = +inf, out[0] = the sorted
+// start index, *visits = 0 and *bar = 0. *launched is set to the number of
+// kernel launches enqueued without error (0 for one sample). Returns 0 or
+// the CUDA error; a grid that cannot be co-resident is an error, never run
+// another way.
+int fps_run(const void *pts, int dim, int is_double, int npad, int chunk,
+            const void *box_lo, const void *box_hi, int nchunks, void *mind2,
+            void *cmax, int *cbest, void *xv, int *xi, int *out,
+            int n_samples, unsigned long long *visits,
             unsigned long long *bar, void *stream, long long *launched) {
   *launched = 0;
   if (dim < 1 || dim > MAX_DIM || nchunks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_samples < 2) return 0;
-  const FpsArgs a{pts,  npad, chunk, box_lo, box_hi, nchunks, mind2, cmax,
-                  cbest, xv,  xi,    out,    n_samples, visits, bar};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      RUN[dim - 1](a, static_cast<cudaStream_t>(stream), launched));
+      is_double
+          ? run_typed<double>(pts, dim, npad, chunk, box_lo, box_hi, nchunks,
+                              mind2, cmax, cbest, xv, xi, out, n_samples,
+                              visits, bar, st, launched)
+          : run_typed<float>(pts, dim, npad, chunk, box_lo, box_hi, nchunks,
+                             mind2, cmax, cbest, xv, xi, out, n_samples,
+                             visits, bar, st, launched));
 }
 
 }  // extern "C"

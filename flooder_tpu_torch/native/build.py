@@ -2,8 +2,10 @@
 
 Two kinds of source, both in this package and nowhere else:
 
-- ``native/src/persistence.cpp``: the Z/2 boundary reduction, compiled
-  with the host C++ compiler into a plain shared library.
+- ``native/src/persistence.cpp`` (the Z/2 boundary reduction) and
+  ``native/src/flood_cpu.cpp`` (the dense engine's min-distance reduction
+  for CPU tensors), each compiled with the host C++ compiler (``$CXX``,
+  default ``g++``) into a plain shared library.
 - ``csrc/<name>.cu``: the hand-written Hopper kernels (with the headers
   ``csrc/*.cuh`` they share), compiled with ``nvcc`` for ``sm_90a`` into
   shared libraries with a plain C interface and loaded with ``ctypes`` (no
@@ -32,6 +34,8 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 BUILD_DIR = PKG_DIR.parent / "build" / "flooder_tpu_torch"
 PERSISTENCE_SRC = PKG_DIR / "native" / "src" / "persistence.cpp"
 PERSISTENCE_LIB = BUILD_DIR / "_persistence.so"
+FLOOD_CPU_SRC = PKG_DIR / "native" / "src" / "flood_cpu.cpp"
+FLOOD_CPU_LIB = BUILD_DIR / "_flood_cpu.so"
 CUDA_SRC_DIR = PKG_DIR / "csrc"
 
 # Kernels are built for Hopper only. -fmad=false keeps every a*b+c as a
@@ -79,7 +83,7 @@ def _finish(name: str, proc: subprocess.Popen, tmp: Path, lib: Path, t0):
 
 
 def _start(cmd, tmp: Path):
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp.parent.mkdir(parents=True, exist_ok=True)
     return subprocess.Popen(
         cmd + ["-o", str(tmp)],
         stdout=subprocess.PIPE,
@@ -136,17 +140,28 @@ def build_cuda(names: Iterable[str]) -> None:
 KERNEL_NAMES = ("flood_min_kernel", "flood_stats_kernel", "fps_loop")
 
 
+_TYPE_ARGS = {"f": "float", "d": "double"}
+
+
+def kernel_instance(mangled: str) -> str:
+    """A kernel's readable name with its template arguments, from its
+    mangled name, e.g. ``fps_loop<double,3>``; unknown names unchanged."""
+    known = [k for k in KERNEL_NAMES if k in mangled]
+    if not known:
+        return mangled
+    args = [_TYPE_ARGS.get(t) or n for n, t in
+            re.findall(r"Li(\d+)E|(?<=I)([fd])(?=Li)", mangled)]
+    return known[0] + (f"<{','.join(args)}>" if args else "")
+
+
 def ptxas_kernels(text: str):
     """(kernel, registers, spill-store bytes, static shared bytes) of each
     entry function in a build's ``-Xptxas=-v`` output, with its template
-    arguments, e.g. ``("flood_min_kernel<3>", 72, 24, 22592)``."""
+    arguments, e.g. ``("flood_min_kernel<3>", 72, 24, 22592)`` or
+    ``("fps_loop<double,3>", ...)``."""
     rows = []
     for block in re.split(r"Compiling entry function '", text)[1:]:
-        name = block.split("'", 1)[0]
-        known = [k for k in KERNEL_NAMES if k in name]
-        if known:
-            args = re.findall(r"Li(\d+)E", name)
-            name = known[0] + (f"<{','.join(args)}>" if args else "")
+        name = kernel_instance(block.split("'", 1)[0])
         regs = re.search(r"Used (\d+) registers", block)
         spill = re.search(r"(\d+) bytes spill stores", block)
         smem = re.search(r"(\d+) bytes smem", block)
@@ -165,29 +180,56 @@ def load_cuda(name: str) -> ctypes.CDLL:
         return _loaded[name]
 
 
-def load_persistence() -> ctypes.CDLL:
-    """Load (building first if needed) the native persistence reduction."""
+def _load_host(name: str, src: Path, lib_path: Path, bind) -> ctypes.CDLL:
+    """Load (building first if missing or stale) the host library
+    ``lib_path`` from the C++ source ``src``; ``bind`` sets its
+    signatures. A failed build raises."""
     with _lock:
-        lib = _loaded.get("persistence")
+        lib = _loaded.get(name)
         if lib is not None:
             return lib
-        if _stale(PERSISTENCE_LIB, PERSISTENCE_SRC):
-            tmp = _tmp_name(PERSISTENCE_LIB)
+        if _stale(lib_path, src):
+            tmp = _tmp_name(lib_path)
             cxx = os.environ.get("CXX", "g++")
-            cmd = [cxx, "-O3", "-std=c++17", "-shared", "-fPIC",
-                   str(PERSISTENCE_SRC)]
-            _finish("persistence", _start(cmd, tmp), tmp, PERSISTENCE_LIB,
+            cmd = [cxx, "-O3", "-std=c++17", "-shared", "-fPIC", str(src)]
+            _finish(name, _start(cmd, tmp), tmp, lib_path,
                     time.perf_counter())
-        lib = ctypes.CDLL(str(PERSISTENCE_LIB))
-        lib.flood_reduce.restype = ctypes.c_int64
-        lib.flood_reduce.argtypes = [
-            ctypes.c_int64,
-            ctypes.POINTER(ctypes.c_int8),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64),
-            ctypes.POINTER(ctypes.c_int64),
-        ]
-        _loaded["persistence"] = lib
+        lib = ctypes.CDLL(str(lib_path))
+        bind(lib)
+        _loaded[name] = lib
         return lib
+
+
+def _bind_persistence(lib):
+    lib.flood_reduce.restype = ctypes.c_int64
+    lib.flood_reduce.argtypes = [
+        ctypes.c_int64,
+        ctypes.POINTER(ctypes.c_int8),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+        ctypes.POINTER(ctypes.c_int64),
+    ]
+
+
+def _bind_flood_cpu(lib):
+    for name, scalar in (("flood_min_dist_f32", ctypes.c_float),
+                         ("flood_min_dist_f64", ctypes.c_double)):
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int64
+        p = ctypes.POINTER(scalar)
+        fn.argtypes = [ctypes.c_int64] * 4 + [p] * 5 + [ctypes.c_int64, p]
+
+
+def load_persistence() -> ctypes.CDLL:
+    """Load (building first if needed) the native persistence reduction."""
+    return _load_host("persistence", PERSISTENCE_SRC, PERSISTENCE_LIB,
+                      _bind_persistence)
+
+
+def load_flood_cpu() -> ctypes.CDLL:
+    """Load (building first if needed) the dense engine's native CPU
+    reduction, ``flood_min_dist_f32`` / ``flood_min_dist_f64``."""
+    return _load_host("flood_cpu", FLOOD_CPU_SRC, FLOOD_CPU_LIB,
+                      _bind_flood_cpu)

@@ -21,6 +21,12 @@ not carried over: u8/f16 admission packing, launch segments sized to the
 TPU's scalar memory, the aliased accumulator, power-of-two compile-key
 bucketing and transposed witness storage. ``active`` is a bool and
 ``dist`` a float, so no pair is ever dropped by a packing.
+
+The kernel takes float32 clouds of 1-8 coordinates (K2's range). Divergence
+from ``flooder_tpu``, whose Pallas engine caps no dimension: past 8
+coordinates the operand check raises ``NotImplementedError`` for a CUDA
+tensor; CPU tensors run the plain version at any width, and float64 and
+``use_pallas=False`` take the dense engine (``ops/flood.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import numpy as np
 import torch
 
 from ..utils.stagetimer import fence, note, stage
+from .flood import _sqsum, local_samples
 
 BS = 8  # simplices per block
 RT = 512  # sample points per tile (at most)
@@ -43,7 +50,7 @@ MASK = 3e18  # out-of-ball witnesses move here
 # Squared distances at or above this mean "no witness in the ball"
 # (a sub-chunk with every witness masked yields >= 9e36).
 _MASKED_D2 = 1e30
-KERNEL_MAX_DIM = 4
+KERNEL_MAX_DIM = 8
 
 # Kernel launches through ``flood_min`` (CUDA tensors only), as counted
 # by ``flood_min_launch`` while it enqueues them.
@@ -52,15 +59,6 @@ LAUNCHES = 0
 
 def _round_up(x: int, m: int) -> int:
     return ((x + m - 1) // m) * m
-
-
-def _sqsum(x: torch.Tensor) -> torch.Tensor:
-    """Sum of squares over the last axis, added in coordinate order with a
-    separate multiply and add (the kernels' order and rounding)."""
-    s = x[..., 0] * x[..., 0]
-    for d in range(1, x.shape[-1]):
-        s = s + x[..., d] * x[..., d]
-    return s
 
 
 # ---------------------------------------------------------------------------
@@ -299,11 +297,7 @@ def _prep(verts_local, weights_p, centers, radii, chunk_lo, chunk_hi,
         dist (n_blk, n_chunks).
     """
     s_total, k, dim = verts_local.shape
-    w = weights_p[None, :, :, None]  # (1, R2, k, 1)
-    v = verts_local[:, None, :, :]  # (S, 1, k, dim)
-    samples_flat = w[:, :, 0] * v[:, :, 0]
-    for j in range(1, k):
-        samples_flat = samples_flat + w[:, :, j] * v[:, :, j]  # (S, R2, dim)
+    samples_flat = local_samples(verts_local, weights_p)  # (S, R2, dim)
     samples = samples_flat.reshape(s_total, nr, rt, dim)
     tile_lo = samples.amin(2)
     tile_hi = samples.amax(2)

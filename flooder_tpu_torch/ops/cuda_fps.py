@@ -3,9 +3,14 @@
 Counterpart of ``flooder_tpu.ops.pallas_fps``. ``_fps_prepare`` lays the
 cloud out as the TPU kernel's did (Hilbert sort, 8192-point chunks with
 bounding boxes), as torch ops; ``csrc/fps.cu`` runs the whole greedy loop
-as one cooperative launch with the same chunk skip and tie rule. The
-wrapper launches the kernel for a CUDA tensor and uses the plain version
-``ops/fps.py`` for a CPU tensor, and nothing else.
+as one cooperative launch with the same chunk skip and tie rule, built for
+float32 and float64 clouds of 1-8 coordinates. The wrapper launches the
+kernel for a CUDA tensor and uses the plain version ``ops/fps.py`` for a
+CPU tensor, and nothing else.
+
+Divergence from ``flooder_tpu``: past 8 coordinates (or for another dtype)
+a CUDA cloud raises, where the reference runs its XLA greedy loop; a CPU
+cloud takes the plain version at any width.
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from .fps import farthest_point_sampling
 
 FPS_CHUNK = 8192
 KERNEL_MAX_DIM = 8
+KERNEL_DTYPES = (torch.float32, torch.float64)
 
 # CUDA launches of the greedy-loop kernel, as counted by ``fps_run`` while
 # it enqueues them (1 per FPS run of at least 2 samples).
@@ -69,7 +75,7 @@ def _lib():
     lib = load_cuda("fps")
     lib.fps_run.restype = ctypes.c_int
     lib.fps_run.argtypes = (
-        [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int]
+        [ctypes.c_void_p] + [ctypes.c_int] * 4
         + [ctypes.c_void_p] * 2
         + [ctypes.c_int]
         + [ctypes.c_void_p] * 6
@@ -77,8 +83,7 @@ def _lib():
         + [ctypes.c_void_p] * 4
     )
     lib.fps_coresident_ctas.restype = ctypes.c_int
-    lib.fps_coresident_ctas.argtypes = [ctypes.c_int, ctypes.c_int,
-                                        ctypes.c_void_p]
+    lib.fps_coresident_ctas.argtypes = [ctypes.c_int] * 3 + [ctypes.c_void_p]
     lib.flooder_cuda_error_string.restype = ctypes.c_char_p
     lib.flooder_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
@@ -91,15 +96,19 @@ def _raise_on(lib, rc: int, what: str):
         )
 
 
-def coresident_ctas(dim: int, device=None) -> int:
-    """How many CTAs of the kernel for ``dim`` coordinates the card holds
-    at once (SMs x resident blocks per SM, by the occupancy query that
-    ``fps_run`` sizes its grid with): the kernel's grid is min(chunks,
-    this)."""
+def coresident_ctas(dim: int, device=None, dtype=torch.float32) -> int:
+    """How many CTAs of the kernel for ``dim`` coordinates of ``dtype``
+    (float32 or float64) the card holds at once (SMs x resident blocks per
+    SM, by the occupancy query that ``fps_run`` sizes its grid with): the
+    kernel's grid is min(chunks, this)."""
+    if dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the CUDA FPS kernel takes float32 or float64, "
+                        f"got {dtype}")
     lib = _lib()
     ctas = ctypes.c_int(0)
     with torch.cuda.device(device):
-        rc = lib.fps_coresident_ctas(dim, FPS_CHUNK, ctypes.byref(ctas))
+        rc = lib.fps_coresident_ctas(dim, int(dtype == torch.float64),
+                                     FPS_CHUNK, ctypes.byref(ctas))
     _raise_on(lib, rc, "fps occupancy query")
     return ctas.value
 
@@ -111,12 +120,13 @@ def fps_kernel_run(prep, n_samples: int) -> torch.Tensor:
     pts_t, box_lo, box_hi, sorted_start, _ = prep
     dim, npad = pts_t.shape
     nchunks = box_lo.shape[1]
-    dev = pts_t.device
+    dev, dt = pts_t.device, pts_t.dtype
     lib = _lib()
-    mind2 = torch.full((npad,), float("inf"), device=dev)
-    cmax = torch.full((nchunks,), float("inf"), device=dev)
+    # the running mins and the exchanged maxima are in the cloud's type
+    mind2 = torch.full((npad,), float("inf"), dtype=dt, device=dev)
+    cmax = torch.full((nchunks,), float("inf"), dtype=dt, device=dev)
     cbest = torch.zeros(nchunks, dtype=torch.int32, device=dev)
-    xv = torch.empty(2 * nchunks, device=dev)
+    xv = torch.empty(2 * nchunks, dtype=dt, device=dev)
     xi = torch.empty(2 * nchunks, dtype=torch.int32, device=dev)
     bar = torch.zeros(1, dtype=torch.int64, device=dev)
     out = torch.empty(n_samples, dtype=torch.int32, device=dev)
@@ -126,7 +136,8 @@ def fps_kernel_run(prep, n_samples: int) -> torch.Tensor:
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.fps_run(
-            pts_t.data_ptr(), dim, npad, FPS_CHUNK, box_lo.data_ptr(),
+            pts_t.data_ptr(), dim, int(dt == torch.float64), npad,
+            FPS_CHUNK, box_lo.data_ptr(),
             box_hi.data_ptr(), nchunks, mind2.data_ptr(), cmax.data_ptr(),
             cbest.data_ptr(), xv.data_ptr(), xi.data_ptr(), out.data_ptr(),
             n_samples, visits.data_ptr(), bar.data_ptr(), stream,
@@ -144,12 +155,13 @@ def cuda_farthest_point_sampling(
     """K2: exact greedy FPS. Returns (n_samples,) int64 indices.
 
     A CPU tensor goes to the plain version; a CUDA tensor launches
-    ``csrc/fps.cu`` or raises (float32, at most 8 coordinates).
+    ``csrc/fps.cu`` or raises (float32 or float64, at most 8 coordinates).
     """
     if points.device.type == "cpu":
         return farthest_point_sampling(points, n_samples, start_idx)
-    if points.dtype != torch.float32:
-        raise TypeError(f"the CUDA FPS kernel takes float32, got {points.dtype}")
+    if points.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"the CUDA FPS kernel takes float32 or float64, "
+                        f"got {points.dtype}")
     n, dim = points.shape
     if not 1 <= dim <= KERNEL_MAX_DIM:
         raise NotImplementedError(

@@ -5,11 +5,19 @@
 - :class:`DelaunayComplex`: Delaunay triangulation (scipy's Qhull).
 - Persistent homology: the C++ twist/clearing boundary reduction built
   from ``native/src/persistence.cpp``.
-
-``AlphaComplex`` and ``bottleneck_distance`` are not ported yet.
+- :class:`AlphaComplex`: the alpha filtration over the Delaunay
+  triangulation, the oracle of the flood complex.
+- :func:`bottleneck_distance`: exact bottleneck matching of diagrams.
 """
 
 from .simplex_tree import SimplexTree
 from .delaunay import DelaunayComplex
+from .alpha import AlphaComplex
+from .bottleneck import bottleneck_distance
 
-__all__ = ["SimplexTree", "DelaunayComplex"]
+__all__ = [
+    "SimplexTree",
+    "DelaunayComplex",
+    "AlphaComplex",
+    "bottleneck_distance",
+]

@@ -67,6 +67,37 @@ def test_fps_kernel_with_several_chunks_per_cta(cuda_device):
     assert_same_greedy_selection(x, got.cpu().numpy(), want.cpu().numpy(), 11)
 
 
+@pytest.mark.parametrize(
+    "n,n_lms,dim,chunks_per_cta",
+    [(6000, 64, 3, 0), (20000, 64, 2, 0), (9000, 32, 8, 0), (0, 40, 3, 2)],
+    ids=["one-chunk", "dim2-cached", "dim8", "several-chunks-a-cta"],
+)
+def test_fps_kernel_float64_matches_plain(cuda_device, n, n_lms, dim,
+                                          chunks_per_cta):
+    """K2's double instance: the same greedy selection as the plain version
+    in float64, on one chunk, with the first chunk's points cached (dim 2),
+    at 8 coordinates, and with more chunks than co-resident CTAs."""
+    if chunks_per_cta:
+        ctas = cuda_fps.coresident_ctas(dim, dtype=torch.float64)
+        n = cuda_fps.FPS_CHUNK * (ctas + 5)
+    x = np.random.default_rng(n + dim).random((n, dim))
+    pts = torch.from_numpy(x).to(cuda_device)
+    before = cuda_fps.LAUNCHES
+    got = cuda_fps.cuda_farthest_point_sampling(pts, n_lms, 5)
+    assert cuda_fps.LAUNCHES == before + 1
+    want = farthest_point_sampling(pts, n_lms, 5)
+    assert_same_greedy_selection(x, got.cpu().numpy(), want.cpu().numpy(), 5)
+
+
+def test_fps_kernel_rejects_other_dtypes(cuda_device):
+    pts = torch.rand(1000, 3, device=cuda_device)
+    with pytest.raises(TypeError):
+        cuda_fps.cuda_farthest_point_sampling(pts.half(), 10, 0)
+    with pytest.raises(NotImplementedError):
+        cuda_fps.cuda_farthest_point_sampling(
+            torch.rand(1000, 9, device=cuda_device), 10, 0)
+
+
 def test_fps_single_sample_launches_nothing(cuda_device):
     pts = torch.rand(1000, 3, device=cuda_device)
     before = cuda_fps.LAUNCHES
@@ -153,18 +184,20 @@ K3_CASES = {
 }
 
 
-def k3_case_operands(device, dim, r_count, empty_block=False, seed=7):
+def k3_case_operands(device, dim, r_count, empty_block=False, seed=7,
+                     radius_max=1.3):
     """Seeded K3 operands from ``CudaFloodEngine.prepare``: 16,384 witnesses
     in [0, 5]^dim, 4 blocks of random simplices with the nearest-vertex
-    bound on. Every fourth ball has radius 1e-5, so it meets the sub-chunk
-    boxes around its centre but holds no witness; ``empty_block`` gives the
-    last block radius 0, so its work-list is empty."""
+    bound on and radii in [0.1, radius_max). Every fourth ball has radius
+    1e-5, so it meets the sub-chunk boxes around its centre but holds no
+    witness; ``empty_block`` gives the last block radius 0, so its
+    work-list is empty."""
     rng = np.random.default_rng(seed + dim)
     X = (rng.random((16384, dim)) * 5).astype(np.float32)
     eng = cuda_flood.CudaFloodEngine(torch.from_numpy(X).to(device))
     S, k = cuda_flood.BS * 4, dim + 1
     centers = (rng.random((S, dim)) * 5).astype(np.float32)
-    radii = (rng.random(S) * 1.2 + 0.1).astype(np.float32)
+    radii = (rng.random(S) * (radius_max - 0.1) + 0.1).astype(np.float32)
     radii[::4] = 1e-5
     if empty_block:
         radii[-cuda_flood.BS:] = 0.0
@@ -222,6 +255,30 @@ def test_flood_stats_kernel_cases_match_plain(cuda_device, case):
         assert not stats_p[-cuda_flood.BS:].any()
 
 
+@pytest.mark.parametrize("dim", [5, 6, 7, 8])
+def test_flood_kernels_match_plain_at_5_to_8_coordinates(cuda_device, dim):
+    """K1 and K3 at 5-8 coordinates (a staged witness of two float4; at 8
+    the raw buffer in dynamic shared memory) against their plain versions.
+    Balls up to radius 3 in [0, 5]^dim hold a few hundred witnesses and cut
+    sub-chunks; 1100 samples give 3 tiles a simplex."""
+    ops = k3_case_operands(cuda_device, dim=dim, r_count=1100,
+                           radius_max=3.0)
+    assert ops[0].shape[1] == 3
+    before = cuda_flood.LAUNCHES
+    out_k, stats_k = cuda_flood.flood_min(*ops)
+    torch.cuda.synchronize()
+    assert cuda_flood.LAUNCHES == before + 1
+    out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
+    masked = out_p >= cuda_flood._MASKED_D2
+    assert torch.equal(out_k >= cuda_flood._MASKED_D2, masked)
+    assert not masked.all()
+    assert (out_k[~masked] - out_p[~masked]).abs().max().item() <= 1e-6
+    assert torch.equal(stats_k, stats_p)
+    units, inball = cuda_flood.kernel_operations(stats_k)
+    assert 0 < inball < units * cuda_flood.SUB * ops[0].shape[2]
+    assert_k3_matches_plain(ops)
+
+
 # the last case is the K1 case above whose balls cut sub-chunks
 @pytest.mark.parametrize(
     "tight,num_rand,shift,radius_scale",
@@ -277,3 +334,75 @@ def test_main_path_goes_through_both_kernels(cuda_device):
     assert cuda_flood.LAUNCHES == k0 + 1
     vals = np.concatenate(st._filt)
     assert np.isfinite(vals).all()
+
+
+def _complex(dev, X, L, **kw):
+    st = ft.flood_complex(X, L, return_simplex_tree=True, device=dev, **kw)
+    return {tuple(s): f for s, f in st.get_simplices()}
+
+
+def _assert_same(a, b, tol):
+    assert a.keys() == b.keys()
+    for s, v in a.items():
+        if np.isinf(v):
+            assert np.isinf(b[s]), s
+        else:
+            assert abs(b[s] - v) <= tol, (s, b[s], v)
+
+
+@pytest.mark.parametrize("mode", ["float64", "dense-float32"])
+def test_dense_pipeline_cuda_matches_cpu(cuda_device, mode):
+    """The dense engine on the card (torch ops) against the CPU run (the
+    native reduction), and float64 against the float32 kernel route."""
+    X = ft.generate_noisy_torus_points_3d(3000, seed=11, device="cpu")
+    if mode == "float64":
+        X = X.double()
+    L = ft.generate_landmarks(X, 60, start_idx=0, device="cpu")
+    kw = dict(points_per_edge=12)
+    if mode == "float64":
+        with pytest.warns(RuntimeWarning):
+            got = _complex("cuda", X, L, **kw)
+        with pytest.warns(RuntimeWarning):
+            want = _complex("cpu", X, L, **kw)
+        _assert_same(want, got, 1e-9)
+        f32 = _complex("cuda", X.float(), L.float(), **kw)
+        _assert_same(f32, got, 3e-6)
+    else:
+        got = _complex("cuda", X, L, use_pallas=False, **kw)
+        _assert_same(_complex("cpu", X, L, use_pallas=False, **kw), got,
+                     1e-6)
+        _assert_same(_complex("cuda", X, L, **kw), got, 1e-5)
+
+
+def test_float64_fps_runs_k2_on_card(cuda_device):
+    X = ft.generate_swiss_cheese_points(20000, seed=2, device="cpu")[0]
+    X = X.double().to(cuda_device)
+    before = cuda_fps.LAUNCHES
+    with pytest.warns(RuntimeWarning):
+        st = ft.flood_complex(X, 80, points_per_edge=8,
+                              return_simplex_tree=True)
+    assert cuda_fps.LAUNCHES == before + 1
+    assert np.isfinite(np.concatenate(st._filt)).all()
+
+
+@pytest.mark.parametrize("case", ["5d-grid", "6d-random"])
+def test_high_dim_pipelines_cuda_match_cpu(cuda_device, case):
+    """The reference's 5-D grid and 6-D random edge cases
+    (tests/test_edge_cases.py) through K2 and K1 on the card, against the
+    CPU run."""
+    if case == "5d-grid":
+        pts = np.random.default_rng(7).random((1200, 5)).astype(np.float32)
+        kw = dict(points_per_edge=4)
+        n_lms = 24
+    else:
+        pts = np.random.default_rng(8).random((800, 6)).astype(np.float32)
+        kw = dict(num_rand=32, points_per_edge=None)
+        n_lms = 16
+    out = {}
+    for dev in ("cpu", "cuda"):
+        np.random.seed(3)
+        k0 = cuda_flood.LAUNCHES
+        out[dev] = _complex(dev, pts, n_lms, start_idx=0, **kw)
+        if dev == "cuda":
+            assert cuda_flood.LAUNCHES > k0
+    _assert_same(out["cpu"], out["cuda"], 1e-5)

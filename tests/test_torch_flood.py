@@ -245,7 +245,7 @@ def _meta_operands(dim=3, s_total=8):
 @pytest.mark.parametrize(
     "bad,error",
     [("float64", TypeError), ("int64", TypeError),
-     ("dim5", NotImplementedError), ("rows", ValueError),
+     ("dim9", NotImplementedError), ("rows", ValueError),
      ("witnesses", ValueError)],
 )
 def test_flood_wrappers_share_one_operand_check(monkeypatch, wrapper, bad,
@@ -259,7 +259,7 @@ def test_flood_wrappers_share_one_operand_check(monkeypatch, wrapper, bad,
 
     monkeypatch.setattr(cf, "_lib", no_kernel)
     monkeypatch.setattr(cfs, "_lib", no_kernel)
-    ops = _meta_operands(dim=5 if bad == "dim5" else 3,
+    ops = _meta_operands(dim=9 if bad == "dim9" else 3,
                          s_total=12 if bad == "rows" else 8)
     if bad == "float64":
         ops[0] = ops[0].double()
@@ -280,3 +280,42 @@ def test_operand_check_wants_aligned_witnesses():
     ops[1] = storage[1:].reshape(2048, 3)  # 4 bytes past an aligned start
     with pytest.raises(ValueError, match="16-byte aligned"):
         cf._check_flood_operands(ops, "k")
+
+
+@pytest.mark.parametrize("dim", [5, 8])
+def test_operand_check_takes_5_to_8_coordinates(dim):
+    """K1's and K3's operand check passes 5-8 coordinates (the kernels are
+    built for 1-8, K2's range) and names the limit past it."""
+    ops = [torch.zeros_like(t, device="cpu") for t in _meta_operands(dim)]
+    assert cf._check_flood_operands(ops, "k")[3] == dim
+    ops = [torch.zeros_like(t, device="cpu") for t in _meta_operands(9)]
+    with pytest.raises(NotImplementedError, match="1..8 coordinates"):
+        cf._check_flood_operands(ops, "k")
+
+
+def test_ptxas_names_every_kernel_instance():
+    """The build's ptxas parser names each instance with its template
+    arguments, K2's scalar type included."""
+    from flooder_tpu_torch.native.build import kernel_instance, ptxas_kernels
+
+    names = {
+        "_ZN40_GLOBAL__N__8_flood_cu_116flood_min_kernelILi8EEEvPKf": (
+            "flood_min_kernel<8>"),
+        "_ZN40_GLOBAL__N__8_flood_stats_cu_118flood_stats_kernelILi5EEEvPKf":
+            "flood_stats_kernel<5>",
+        "_ZN12_GLOBAL__N_18fps_loopIdLi3EEEvNS_7FpsArgsIT_EE": (
+            "fps_loop<double,3>"),
+        "_ZN12_GLOBAL__N_18fps_loopIfLi8EEEvNS_7FpsArgsIT_EE": (
+            "fps_loop<float,8>"),
+        "other_kernel": "other_kernel",
+    }
+    for mangled, want in names.items():
+        assert kernel_instance(mangled) == want
+    text = "".join(
+        f"ptxas info    : Compiling entry function '{m}' for 'sm_90a'\n"
+        f"ptxas info    : Used {i + 40} registers, {8 * i} bytes spill "
+        f"stores, 272 bytes smem\n"
+        for i, m in enumerate(names))
+    rows = ptxas_kernels(text)
+    assert [r[0] for r in rows] == list(names.values())
+    assert rows[2] == ("fps_loop<double,3>", 42, 16, 272)

@@ -95,16 +95,19 @@ def test_no_source_points_into_flooder_tpu():
 def test_native_build_uses_only_own_sources():
     from flooder_tpu_torch.native import build
 
-    srcs = [build.PERSISTENCE_SRC] + [
+    srcs = [build.PERSISTENCE_SRC, build.FLOOD_CPU_SRC] + [
         build.cuda_source(n) for n in ("flood", "fps", "flood_stats")
     ]
     for src in srcs:
         assert src.exists(), src
         assert PKG in src.resolve().parents, src
     assert REPO / "flooder_tpu" not in build.BUILD_DIR.parents
-    # the persistence source is an own, byte-for-byte copy
-    ref = REPO / "flooder_tpu" / "native" / "src" / "persistence.cpp"
-    assert build.PERSISTENCE_SRC.read_bytes() == ref.read_bytes()
+    # the native sources are own, byte-for-byte copies
+    ref = REPO / "flooder_tpu" / "native" / "src"
+    assert build.PERSISTENCE_SRC.read_bytes() == (
+        ref / "persistence.cpp").read_bytes()
+    assert build.FLOOD_CPU_SRC.read_bytes() == (
+        ref / "flood_cpu.cpp").read_bytes()
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
@@ -143,16 +146,23 @@ def test_as_tensor_keeps_identity_and_converts():
 
 
 def test_unported_paths_raise():
+    """float64 and the dense engine (use_pallas=False / use_triton=False)
+    are ported and return complexes; meshes and integer clouds raise."""
     import flooder_tpu_torch as ft
 
     X = np.random.default_rng(0).random((300, 3))
-    with pytest.raises(NotImplementedError, match="float64"):
-        ft.flood_complex(X, 10, points_per_edge=5, device="cpu")
+    with pytest.warns(RuntimeWarning, match="float64"):
+        f64 = ft.flood_complex(X, 10, points_per_edge=5, device="cpu")
     X32 = X.astype(np.float32)
-    with pytest.raises(NotImplementedError, match="dense"):
-        ft.flood_complex(X32, 10, use_pallas=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="dense"):
-        ft.flood_complex(X32, 10, use_triton=False, device="cpu")
+    dense = ft.flood_complex(X32, 10, points_per_edge=5, use_pallas=False,
+                             device="cpu")
+    alias = ft.flood_complex(X32, 10, points_per_edge=5, use_triton=False,
+                             device="cpu")
+    kernel = ft.flood_complex(X32, 10, points_per_edge=5, device="cpu")
+    assert set(f64) == set(dense) == set(alias) == set(kernel)
+    for s, v in kernel.items():
+        assert abs(dense[s] - v) < 1e-5 and alias[s] == dense[s]
+        assert abs(f64[s] - v) < 3e-6
     with pytest.raises(NotImplementedError, match="mesh"):
         ft.flood_complex(X32, 10, mesh=object(), device="cpu")
     with pytest.raises(TypeError):
