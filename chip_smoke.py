@@ -44,6 +44,16 @@ check fails):
 - dense: ``use_pallas=False`` in float32 against the kernel route on the
   100k x 300 cheese, timed.
 
+The cli phase (after the main path) saves the main path's cloud to a
+``.npy`` and runs ``python -m flooder_tpu_torch.cli`` on it twice as a
+subprocess, with the default device, the second time with
+``--trace-dir``: its diagrams must equal the main path's within 1e-6, its
+metadata and step stats must show the card, and its trace must hold K1
+and K2. From the trace it prints the device busy share of the
+Flood-complex step (the union of GPU kernel, memcpy and memset intervals
+over the step's window); it also traces one warm main-path run in this
+process the same way.
+
 Output: ``#`` lines with every phase's result, then a ``{"kernels": ...}``
 JSON line, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure ends the script with a
@@ -54,10 +64,12 @@ import contextlib
 import io
 import json
 import os
+import pickle
 import re
 import shutil
 import subprocess
 import sys
+import tempfile
 import time
 import warnings
 
@@ -340,6 +352,151 @@ def flood_bound_ms(operands, inball_pairs):
         "bytes")
 
 
+def sorted_bars(d):
+    d = np.asarray(d, dtype=np.float64).reshape(-1, 2)
+    return d[np.lexsort((d[:, 1], d[:, 0]))]
+
+
+def diagrams_diff(a, b, tol, what):
+    """Max |diff| of two lists of diagrams: the same number of bars in
+    every dimension, births and deaths within ``tol`` after sorting, inf
+    in the same places."""
+    if len(a) != len(b):
+        raise AssertionError(f"{what}: {len(a)} dimensions against {len(b)}")
+    err = 0.0
+    for dim, (da, db) in enumerate(zip(a, b)):
+        da, db = sorted_bars(da), sorted_bars(db)
+        if da.shape != db.shape:
+            raise AssertionError(f"{what}: dimension {dim} has {len(da)} "
+                                 f"bars against {len(db)}")
+        inf = np.isinf(da)
+        if not (inf == np.isinf(db)).all():
+            raise AssertionError(f"{what}: inf differs in dimension {dim}")
+        if (~inf).any():
+            err = max(err, float(np.abs(da[~inf] - db[~inf]).max()))
+    if not err <= tol:
+        raise AssertionError(f"{what}: max |diff| {err} > {tol}")
+    return err
+
+
+GPU_EVENT_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def trace_busy(trace_dir, step):
+    """Device activity of one step from the Chrome trace that StepTimer
+    wrote into ``trace_dir``: the step's window (its ``record_function``
+    span, which ends after the exit fence), the union of the intervals of
+    every GPU kernel, memcpy and memset clipped to it, and per kernel name
+    the count and summed duration (µs)."""
+    paths = sorted(p for p in os.listdir(trace_dir) if p.endswith(".json"))
+    if len(paths) != 1:
+        raise AssertionError(f"trace dir holds {paths}, not one trace")
+    with open(os.path.join(trace_dir, paths[0])) as f:
+        events = json.load(f)["traceEvents"]
+    spans = [e for e in events if e.get("cat") == "user_annotation"
+             and e.get("name") == step]
+    if len(spans) != 1:
+        raise AssertionError(f"trace: {len(spans)} spans named {step!r}")
+    w0 = float(spans[0]["ts"])
+    w1 = w0 + float(spans[0]["dur"])
+    gpu = [e for e in events
+           if e.get("ph") == "X" and e.get("cat") in GPU_EVENT_CATS]
+    if not gpu:
+        raise AssertionError("trace: no device activity (no GPU kernel, "
+                             "memcpy or memset event)")
+    ivals = sorted((max(w0, float(e["ts"])),
+                    min(w1, float(e["ts"]) + float(e["dur"]))) for e in gpu)
+    busy, end = 0.0, w0
+    for a, b in ivals:
+        a = max(a, end)
+        if b > a:
+            busy += b - a
+            end = b
+    kernels = {}
+    for e in gpu:
+        if e["cat"] == "kernel":
+            n, us = kernels.get(e["name"], (0, 0.0))
+            kernels[e["name"]] = (n + 1, us + float(e["dur"]))
+    cats = {c: sum(e["cat"] == c for e in gpu) for c in GPU_EVENT_CATS}
+    # host-side CUDA API calls in the window: where a cold step waits
+    api = sorted(((float(e["dur"]), e["name"]) for e in events
+                  if e.get("ph") == "X"
+                  and e.get("cat") in ("cuda_runtime", "cuda_driver")
+                  and w0 <= float(e["ts"]) <= w1), reverse=True)
+    return {"window_us": w1 - w0, "busy_us": busy, "kernels": kernels,
+            "events": cats, "api_us": sum(d for d, _ in api),
+            "api_top": [(n, round(d / 1e3, 3)) for d, n in api[:5]],
+            "size_bytes": os.path.getsize(os.path.join(trace_dir, paths[0]))}
+
+
+def kernel_in_trace(busy, name):
+    """(launches, µs) of the kernels whose (mangled) name holds ``name``."""
+    hits = [v for k, v in busy["kernels"].items() if name in k]
+    return sum(n for n, _ in hits), sum(us for _, us in hits)
+
+
+def run_cli(args):
+    """``python -m flooder_tpu_torch.cli`` as a user runs it, from the
+    checkout's root (so it loads the kernels this script built)."""
+    res = subprocess.run(
+        [sys.executable, "-m", "flooder_tpu_torch.cli", *map(str, args)],
+        cwd=os.path.dirname(os.path.abspath(__file__)), capture_output=True,
+        text=True, timeout=600,
+    )
+    if res.returncode != 0:
+        raise AssertionError(f"CLI exit {res.returncode}:\n"
+                             f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    return res
+
+
+CLI_STEPS = ["Loading", "Flood complex", "Persistence"]
+
+
+def cli_phase(X, diagrams):
+    """The CLI on the main path's cloud, twice (the second run traced):
+    its diagrams against the main path's, its metadata and stats, and the
+    device busy share of its Flood-complex step from the trace."""
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        cloud = os.path.join(tmp, "cheese.npy")
+        np.save(cloud, X.cpu().numpy())
+        trace_dir = os.path.join(tmp, "trace")
+        for run in ("untraced", "traced"):
+            pkl = os.path.join(tmp, f"{run}.pkl")
+            stats_json = os.path.join(tmp, f"{run}.json")
+            args = ["--input-file", cloud, "--num-landmarks", N_LANDMARKS,
+                    "--points-per-edge", PPE, "--output-file", pkl,
+                    "--stats-json", stats_json]
+            if run == "traced":
+                args += ["--trace-dir", trace_dir]
+            t0 = time.perf_counter()
+            run_cli(args)
+            process_s = time.perf_counter() - t0
+            with open(pkl, "rb") as f:
+                payload = pickle.load(f)
+            with open(stats_json) as f:
+                steps = json.load(f)
+            err = diagrams_diff(diagrams, payload["diagrams"], 1e-6,
+                                f"CLI ({run}) against the main path")
+            meta = payload["meta"]
+            if not (meta["n_points"] == N_POINTS and meta["ambient_dim"] == 3
+                    and meta["use_pallas"] is True
+                    and meta["device"].startswith("cuda")):
+                raise AssertionError(f"CLI ({run}) meta: {meta}")
+            if [s["name"] for s in steps] != CLI_STEPS:
+                raise AssertionError(f"CLI ({run}) steps: {steps}")
+            flood = steps[1]
+            peak = flood["device_peak_mib"]
+            if not (flood["device_kind"] == "cuda" and peak is not None
+                    and np.isfinite(peak) and peak > 0):
+                raise AssertionError(f"CLI ({run}) Flood complex: {flood}")
+            out[run] = {"steps": steps, "max_abs_err": err,
+                        "process_s": process_s}
+            if run == "traced":
+                out["busy"] = trace_busy(trace_dir, "Flood complex")
+    return out
+
+
 def main():
     import torch
 
@@ -356,7 +513,7 @@ def main():
     from flooder_tpu_torch.ops.fps import farthest_point_sampling
     from flooder_tpu_torch.tools import kernel_stats
     from flooder_tpu_torch.tools.scene import block_slice, build_scene
-    from flooder_tpu_torch.utils import stagetimer
+    from flooder_tpu_torch.utils import StepTimer, stagetimer
 
     dev = torch.device("cuda")
     card = card_line()
@@ -527,6 +684,64 @@ def main():
     split["total"] = round(time.perf_counter() - t0, 4)
     log("stage split (s, fenced; nested stages overlap; 'main-path' is "
         f"the whole run): {json.dumps(split)}")
+
+    # ---- cli: the command line on the main path's cloud --------------------
+    t_phase = time.perf_counter()
+    cli = cli_phase(X, diagrams)
+    for run in ("untraced", "traced"):
+        r = cli[run]
+        table = [(s["name"], round(s["wall_s"], 4), round(s["cpu_s"], 4),
+                  None if s["device_peak_mib"] is None
+                  else round(s["device_peak_mib"], 1)) for s in r["steps"]]
+        log(f"CLI {run} run (python -m flooder_tpu_torch.cli, default device, "
+            f"{N_POINTS} x {N_LANDMARKS}, ppe {PPE}): diagrams == the main "
+            f"path's, max |diff| {r['max_abs_err']}; steps (name, wall s, "
+            f"cpu s, device peak MiB) {table}; process {r['process_s']:.2f}s")
+    busy = cli["busy"]
+    k1_n, k1_us = kernel_in_trace(busy, "flood_min_kernel")
+    k2_n, k2_us = kernel_in_trace(busy, "fps_loop")
+    if not (k1_n >= 1 and k2_n >= 1):
+        raise AssertionError("CLI trace: K1 (flood_min_kernel) and K2 "
+                             f"(fps_loop) must appear: {k1_n}, {k2_n}")
+    window = busy["window_us"]
+    walls = [cli[r]["steps"][1]["wall_s"] for r in ("untraced", "traced")]
+    log(f"CLI Flood-complex step, traced (cold process, one run): device "
+        f"busy {busy['busy_us'] / 1e3:.3f} ms of a {window / 1e3:.3f} ms "
+        f"window, share {busy['busy_us'] / window:.4f} (union of "
+        f"{busy['events']} GPU events); K1 {k1_n} launch(es) "
+        f"{k1_us / 1e3:.3f} ms + K2 {k2_n} launch(es) {k2_us / 1e3:.3f} ms "
+        f"= {(k1_us + k2_us) / 1e3:.3f} ms, share "
+        f"{(k1_us + k2_us) / window:.4f}; {len(busy['kernels'])} kernel "
+        f"names; CUDA API calls on the host {busy['api_us'] / 1e3:.3f} ms, "
+        f"longest (name, ms) {busy['api_top']}; trace {busy['size_bytes']} "
+        "bytes")
+    log(f"CLI Flood-complex step wall: untraced {walls[0]:.4f}s, traced "
+        f"{walls[1]:.4f}s (profiler start, stop and export included)")
+    top = sorted(busy["kernels"].items(), key=lambda kv: -kv[1][1])[:8]
+    log("CLI trace, kernels by summed time (name[:60], launches, ms): "
+        f"{[(k[:60], n, round(us / 1e3, 3)) for k, (n, us) in top]}")
+    # the same measurement in this process, on a warm main-path run
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        with StepTimer("main path", dev, trace_dir=tmp) as t:
+            t1 = time.perf_counter()
+            main_path()
+            t2 = time.perf_counter()
+        t3 = time.perf_counter()
+        warm = trace_busy(tmp, "main path")
+    w_k1 = kernel_in_trace(warm, "flood_min_kernel")
+    w_k2 = kernel_in_trace(warm, "fps_loop")
+    log(f"main path traced in this process (warm): device busy "
+        f"{warm['busy_us'] / 1e3:.3f} ms of a {warm['window_us'] / 1e3:.3f} "
+        f"ms window, share {warm['busy_us'] / warm['window_us']:.4f} "
+        f"({warm['events']}); K1 {w_k1[0]} launch(es) {w_k1[1] / 1e3:.3f} "
+        f"ms, K2 {w_k2[0]} launch(es) {w_k2[1] / 1e3:.3f} ms; CUDA API "
+        f"calls on the host {warm['api_us'] / 1e3:.3f} ms; step wall "
+        f"{t.stats.wall_s:.4f}s traced against the untraced median "
+        f"{median:.4f}s: profiler start {t1 - t0:.4f}s, the run "
+        f"{t2 - t1:.4f}s, fence, profiler stop and export {t3 - t2:.4f}s "
+        "(host clock)")
+    log(f"cli phase: {time.perf_counter() - t_phase:.1f}s")
 
     # ---- kernel times at the main path's shapes -----------------------------
     ops, _ = top_pass_operands(engine, L, PPE)

@@ -406,3 +406,28 @@ def test_high_dim_pipelines_cuda_match_cpu(cuda_device, case):
         if dev == "cuda":
             assert cuda_flood.LAUNCHES > k0
     _assert_same(out["cpu"], out["cuda"], 1e-5)
+
+
+def test_step_timer_on_cuda(cuda_device):
+    """StepTimer on the card: a per-step device peak that covers a 64 MB
+    allocation (the peak is reset on entry), and a wall time that covers a
+    kernel's run (the step is fenced on exit)."""
+    from flooder_tpu_torch.utils import StepTimer
+
+    keep = torch.empty(256 * 2**20, dtype=torch.uint8, device=cuda_device)
+    del keep  # an earlier, larger peak that the step must not report
+    with StepTimer("alloc", cuda_device) as t:
+        x = torch.ones(64 * 2**20, dtype=torch.uint8, device=cuda_device)
+        del x
+    assert t.stats.device_kind == "cuda"
+    assert 64 <= t.stats.device_peak_mib < 256
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    with StepTimer("spin", cuda_device) as t:
+        start.record()
+        torch.cuda._sleep(200_000_000)  # about 0.1 s of device spinning
+        end.record()
+    kernel_s = start.elapsed_time(end) / 1e3
+    assert kernel_s > 0.02
+    assert t.stats.wall_s >= kernel_s
