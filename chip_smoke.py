@@ -54,6 +54,18 @@ Flood-complex step (the union of GPU kernel, memcpy and memset intervals
 over the step's window); it also traces one warm main-path run in this
 process the same way.
 
+The mesh phase (``flooder_tpu_torch.parallel``, one process over a grid of
+devices; the meshes name ``cuda:0`` several times) holds the 2x2, 1x3
+and 4x1 meshes of the card against the same meshes on the CPU (K1's plain
+version in every shard) on a 20,000-point torus in grid and random mode,
+and the dense and float64 2x2 meshes the same way; then it drives the
+main path's 1M x 1k through 2x2, 1x4 and 1x3 meshes: each complex and its
+diagrams must equal the main path's, K1 must launch once per shard, and it
+prints the fenced time beside one card's and the per-shard balance and K1
+time with the LPT assignment and with the contiguous split. The examples
+phase runs each of ``flooder_tpu_torch/examples`` with ``--small`` on the
+card.
+
 Output: ``#`` lines with every phase's result, then a ``{"kernels": ...}``
 JSON line, the card's name and power limit, and as the last line
 ``{"ok": true, "device": {...}}``. Any failure ends the script with a
@@ -105,6 +117,12 @@ DIM5_POINTS, DIM5_LANDMARKS, DIM5_PPE = 200_000, 64, 5  # K1 timed at 5-D
 F64_LANDMARKS = 150  # the reference's test_float64 clouds: 3000 x 150
 F64_POINTS = 3000
 DENSE_POINTS, DENSE_LANDMARKS = 100_000, 300  # float64 and dense timing
+# mesh phase: small meshes on the card against the CPU ((devices, simplex
+# axis) requests), and meshes of the one card at the main path's size
+MESH_SMALL_POINTS, MESH_SMALL_LANDMARKS, MESH_SMALL_PPE = 20_000, 120, 8
+MESH_NUM_RAND = 64
+MESH_SMALL = ((4, 2), (3, 1), (4, 4))  # 2x2, 1x3, 4x1
+MESH_FULL = ((4, 2), (4, 1), (3, 1))  # 2x2, 1x4, 1x3
 
 
 def log(msg):
@@ -211,9 +229,10 @@ def seeded_flood_operands(dim, device, r_count=1100, radius_max=3.0,
     return eng.prepare(t(verts), w, t(centers), t(radii), True)[0]
 
 
-def top_pass_operands(engine, landmarks, ppe, tight=True):
-    """The operands flood_complex hands kernel K1 in its top-dimension pass
-    (grid mode), and the number of top simplices."""
+def top_pass_inputs(engine, landmarks, ppe):
+    """What flood_complex hands an engine in its top-dimension pass (grid
+    mode): the top simplices' vertices, the grid weights, and their balls'
+    centers and radii, in the engine's visit order."""
     import torch
 
     from flooder_tpu_torch.core import _grid_host
@@ -229,9 +248,14 @@ def top_pass_operands(engine, landmarks, ppe, tight=True):
     verts = landmarks[top]
     centers, radii = simplex_bounding_balls(verts)
     order = torch.as_tensor(engine.order(centers), device=dev)
+    return verts[order], _grid_host(ppe, dim)[0], centers[order], radii[order]
+
+
+def top_pass_operands(engine, landmarks, ppe, tight=True):
+    """The operands flood_complex hands kernel K1 in its top-dimension pass
+    (grid mode), and the number of top simplices."""
     operands, _, num = engine.prepare(
-        verts[order], _grid_host(ppe, dim)[0], centers[order], radii[order],
-        tight)
+        *top_pass_inputs(engine, landmarks, ppe), tight)
     return operands, num
 
 
@@ -495,6 +519,214 @@ def cli_phase(X, diagrams):
             if run == "traced":
                 out["busy"] = trace_busy(trace_dir, "Flood complex")
     return out
+
+
+def shard_balance(engine, inputs, assign=None):
+    """Per-shard work of the mesh engine's top pass at the main path's
+    shapes: (work-list pairs, admitted units, in-ball pairs, K1 ms) per
+    (simplex shard, witness shard). ``assign`` replaces the LPT
+    assignment for this call (the contiguous split), else LPT runs."""
+    from flooder_tpu_torch.ops import cuda_flood
+    from flooder_tpu_torch.parallel import sharding
+
+    lpt = sharding.balance_chunk_assignment
+    if assign is not None:
+        sharding.balance_chunk_assignment = assign
+    try:
+        shards = engine.shard_operands(*inputs, True)[0]
+    finally:
+        sharding.balance_chunk_assignment = lpt
+    rows = []
+    for row in shards:
+        for ops in row:
+            units, inball = cuda_flood.kernel_operations(
+                cuda_flood.flood_min(*ops)[1])
+            ms = cuda_ms(lambda: cuda_flood.flood_min(*ops), 3)
+            rows.append((ops[-1].numel(), units, inball, ms))
+    return rows
+
+
+def max_mean(values):
+    v = np.asarray(values, dtype=np.float64)
+    return float(v.max() / v.mean()) if v.mean() > 0 else float("nan")
+
+
+def mesh_phase(X, main_complex, diagrams, k1_ms):
+    """The mesh path: small meshes on the card against the same meshes on
+    the CPU (every shard's K1 against its plain version), the dense and
+    float64 mesh engines, and the main path's 1M x 1k through 2x2, 1x4 and
+    1x3 meshes of the one card."""
+    import torch
+
+    import flooder_tpu_torch as ft
+    from flooder_tpu_torch.ops import cuda_flood, cuda_fps
+    from flooder_tpu_torch.parallel import MeshCudaFloodEngine, make_mesh
+
+    res = {}
+    # ---- small: the card against the CPU ----------------------------------
+    Y = ft.generate_noisy_torus_points_3d(MESH_SMALL_POINTS, seed=4,
+                                          device="cpu")
+    LY = ft.generate_landmarks(Y, MESH_SMALL_LANDMARKS, start_idx=0,
+                               device="cuda").cpu()
+    small_err = {}
+    for n, sp in MESH_SMALL:
+        card = make_mesh(["cuda:0"] * n, simplex_parallel=sp)
+        host = make_mesh(["cpu"] * n, simplex_parallel=sp)
+        name = "x".join(map(str, card.shape.values()))
+        k0 = cuda_flood.LAUNCHES
+        got = complex_dict(Y, LY, None, mesh=card,
+                           points_per_edge=MESH_SMALL_PPE)
+        if cuda_flood.LAUNCHES != k0 + n:  # one pass, one launch a shard
+            raise AssertionError(f"mesh {name}: {cuda_flood.LAUNCHES - k0} "
+                                 f"K1 launches, not {n}")
+        want = complex_dict(Y, LY, None, mesh=host,
+                            points_per_edge=MESH_SMALL_PPE)
+        small_err[name, "grid"] = complex_diff(want, got, 1e-6,
+                                               f"mesh {name} grid, card vs CPU")
+        np.random.seed(1)
+        got_r = complex_dict(Y, LY, None, mesh=card, num_rand=MESH_NUM_RAND,
+                             points_per_edge=None)
+        if name == "2x2":
+            # the CPU's random-mode result is the same for every mesh
+            # (tests/test_torch_sharding.py), so it is computed once
+            np.random.seed(1)
+            want_r = complex_dict(Y, LY, None, mesh=host,
+                                  num_rand=MESH_NUM_RAND, points_per_edge=None)
+        small_err[name, "random"] = complex_diff(
+            want_r, got_r, 1e-6, f"mesh {name} random, card vs CPU")
+    log(f"mesh small {MESH_SMALL_POINTS} x {MESH_SMALL_LANDMARKS} torus, ppe "
+        f"{MESH_SMALL_PPE} and {MESH_NUM_RAND} random samples: card meshes "
+        f"(K1 once per shard and pass) == the CPU meshes (K1's plain "
+        f"version) on {len(want)} simplices, max |diff| "
+        f"{ {'/'.join(k): v for k, v in small_err.items()} }")
+    card = make_mesh(["cuda:0"] * 4, simplex_parallel=2)
+    host = make_mesh(["cpu"] * 4, simplex_parallel=2)
+    dense_err = complex_diff(
+        complex_dict(Y, LY, None, mesh=host, use_pallas=False,
+                     points_per_edge=MESH_SMALL_PPE),
+        complex_dict(Y, LY, None, mesh=card, use_pallas=False,
+                     points_per_edge=MESH_SMALL_PPE),
+        1e-6, "dense mesh 2x2, card vs CPU")
+    f64_err = complex_diff(
+        complex_dict(Y.double(), LY.double(), None, mesh=host,
+                     points_per_edge=MESH_SMALL_PPE),
+        complex_dict(Y.double(), LY.double(), None, mesh=card,
+                     points_per_edge=MESH_SMALL_PPE),
+        1e-6, "float64 mesh 2x2, card vs CPU")
+    log(f"mesh small 2x2: dense engine (use_pallas=False) card == CPU, max "
+        f"|diff| {dense_err}; float64 card == CPU, max |diff| {f64_err}")
+    res["small_max_abs_err"] = max(small_err.values())
+    res["dense_max_abs_err"] = dense_err
+    res["float64_max_abs_err"] = f64_err
+
+    # ---- full width: the main path's cloud through meshes of one card -----
+    def fenced(mesh):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st = ft.flood_complex(X, N_LANDMARKS, points_per_edge=PPE,
+                              max_dimension=3, return_simplex_tree=True,
+                              mesh=mesh)
+        torch.cuda.synchronize()
+        return st, time.perf_counter() - t0
+
+    fenced(None)  # warm
+    single_s = float(np.median([fenced(None)[1] for _ in range(REPS)]))
+    L = ft.generate_landmarks(X, N_LANDMARKS, start_idx=0)
+    res["meshes"] = {}
+    for n, sp in MESH_FULL:
+        mesh = make_mesh(["cuda:0"] * n, simplex_parallel=sp)
+        name = "x".join(map(str, mesh.shape.values()))
+        fenced(mesh)  # warm: builds and caches the engine
+        cuda_fps.LAUNCHES = cuda_flood.LAUNCHES = 0
+        st, first_s = fenced(mesh)
+        launches = {"fps": cuda_fps.LAUNCHES, "flood": cuda_flood.LAUNCHES}
+        if launches != {"fps": 1, "flood": n}:
+            raise AssertionError(f"mesh {name} at {N_POINTS} x {N_LANDMARKS}: "
+                                 f"launches {launches}, not K2 once and K1 "
+                                 f"{n} times")
+        got = {tuple(s): f for s, f in st.get_simplices()}
+        err = complex_diff(main_complex, got, 2e-6,
+                           f"mesh {name} against the main path")
+        st.compute_persistence()
+        d_err = diagrams_diff(
+            diagrams, [st.persistence_intervals_in_dimension(i)
+                       for i in range(3)], 2e-6,
+            f"mesh {name} diagrams against the main path")
+        times = [first_s] + [fenced(mesh)[1] for _ in range(REPS - 1)]
+        eng = MeshCudaFloodEngine(X, mesh)
+        inputs = top_pass_inputs(eng, L, PPE)
+        lpt = shard_balance(eng, inputs)
+        contiguous = shard_balance(
+            eng, inputs, lambda loads, bins: np.arange(len(loads),
+                                                       dtype=np.int32))
+        del eng, inputs
+        bal = {}
+        for label, rows in (("lpt", lpt), ("contiguous", contiguous)):
+            cols = list(zip(*rows))
+            bal[label] = {
+                "pairs_max_mean": max_mean(cols[0]),
+                "units_max_mean": max_mean(cols[1]),
+                "inball_max_mean": max_mean(cols[2]),
+                "k1_ms": list(cols[3]), "k1_ms_sum": float(sum(cols[3])),
+                "k1_ms_max": float(max(cols[3])),
+                "pairs": list(cols[0]), "inball": list(cols[2]),
+            }
+        res["meshes"][name] = {
+            "launches": launches["flood"], "max_abs_err": err,
+            "diagrams_max_abs_err": d_err,
+            "flood_complex_s": float(np.median(times)), "reps_s": times,
+            "balance": bal,
+        }
+        log(f"mesh {name} ({n} x cuda:0) at {N_POINTS} x {N_LANDMARKS}, ppe "
+            f"{PPE}: complex == the main path's (max |diff| {err}), diagrams "
+            f"== (max |diff| {d_err}); K1 launches {launches['flood']} "
+            f"(= n_ss x n_ws), K2 {launches['fps']}; fenced flood_complex "
+            f"median {np.median(times):.4f}s {[round(t, 4) for t in times]} "
+            f"against one card {single_s:.4f}s")
+        for label in ("lpt", "contiguous"):
+            b = bal[label]
+            log(f"mesh {name} top pass, {label} assignment: per shard "
+                f"pairs {b['pairs']}, in-ball pairs {b['inball']}; max/mean "
+                f"pairs {b['pairs_max_mean']:.4f}, admitted units "
+                f"{b['units_max_mean']:.4f}, in-ball pairs "
+                f"{b['inball_max_mean']:.4f}; K1 ms per shard "
+                f"{[round(t, 3) for t in b['k1_ms']]}, sum "
+                f"{b['k1_ms_sum']:.3f} ms against one launch {k1_ms:.3f} ms")
+    res["single_flood_complex_s"] = single_s
+    return res
+
+
+EXAMPLES = ("example_01_cheese_3d", "example_02_torus_3d",
+            "example_03_figure_eight_2d", "example_04_featurization")
+
+
+def examples_phase():
+    """Each port example's ``main(["--small"])`` in process on the default
+    device (cuda): a clean return, K1 launched, and its wall time."""
+    import importlib
+
+    import torch
+
+    from flooder_tpu_torch.ops import cuda_flood
+
+    walls = {}
+    for name in EXAMPLES:
+        main = importlib.import_module(
+            f"flooder_tpu_torch.examples.{name}").main
+        buf = io.StringIO()
+        k0 = cuda_flood.LAUNCHES
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            main(["--small"])
+        torch.cuda.synchronize()
+        walls[name] = time.perf_counter() - t0
+        if cuda_flood.LAUNCHES == k0:
+            raise AssertionError(f"{name}: K1 did not run on the card")
+        text = re.sub(r"\x1b\[[0-9;]*m", "", buf.getvalue())
+        tail = [ln for ln in text.splitlines() if ln.strip()][-1]
+        log(f"{name} --small on cuda: {walls[name]:.2f}s wall, "
+            f"{cuda_flood.LAUNCHES - k0} K1 launches; last line: {tail}")
+    return walls
 
 
 def main():
@@ -1076,6 +1308,17 @@ def main():
     del C32, LC, k1_route, dense_route
     log(f"dense phase: {time.perf_counter() - t_phase:.1f}s")
 
+    # ---- mesh: K1 once per shard ---------------------------------------------
+    t_phase = time.perf_counter()
+    main_complex = {tuple(sm): f for sm, f in stree.get_simplices()}
+    mesh = mesh_phase(X, main_complex, diagrams, k1_ms)
+    log(f"mesh phase: {time.perf_counter() - t_phase:.1f}s")
+
+    # ---- examples: the port's examples 01-04 on the card --------------------
+    t_phase = time.perf_counter()
+    example_walls = examples_phase()
+    log(f"examples phase: {time.perf_counter() - t_phase:.1f}s")
+
     no_lib = "none: no single PyTorch call computes this function"
     kernels = [
         {
@@ -1091,6 +1334,7 @@ def main():
             "max_abs_err_by_dim": {str(d): e for d, e in k1_dim_err.items()},
             "ms_5d_200k_x_64": k1_5d_ms, "bound_ms_5d_200k_x_64": k1_5d_bound,
             "bound_by_5d": k1_5d_by,
+            "mesh": mesh,
         },
         {
             "name": "fps", "route": "cuda",

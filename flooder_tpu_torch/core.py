@@ -14,10 +14,10 @@ engine (K1) by default, on the card and on the CPU; ``use_pallas=False``
 (``ops/flood.py``: torch ops on the card, the native reduction on the
 CPU), and float64 warns that it may be slow; ``use_pallas=True`` with
 float64 raises ``TypeError``. FPS of a CUDA float64 cloud runs K2's double
-instance.
-
-Not ported yet, and raising ``NotImplementedError`` when asked for:
-multi-device meshes (``mesh=``).
+instance. With ``mesh=`` (``parallel.make_mesh``) the same choice picks the
+mesh kernel engine (``MeshCudaFloodEngine``: K1 once per shard) or the
+dense mesh engine (``MeshFloodEngine``); the inputs and the result live on
+the mesh's first device.
 """
 
 from __future__ import annotations
@@ -36,6 +36,8 @@ import torch
 from .ops.cuda_flood import CudaFloodEngine
 from .ops.cuda_fps import cuda_farthest_point_sampling
 from .ops.flood import DenseFloodEngine, simplex_bounding_balls
+from .parallel.sharding import (Mesh, MeshCudaFloodEngine, MeshFloodEngine,
+                                mesh_device)
 from .topology import DelaunayComplex, SimplexTree
 from .utils.device import DeviceLike, as_tensor
 from .utils.stagetimer import fence, stage
@@ -272,11 +274,15 @@ def flood_complex(
         start_idx: FPS start index (None = random, host numpy RNG).
         wchunk: witness chunk of the dense engine (None: by cloud size);
             the kernel engine's chunk is fixed.
-        mesh: multi-device meshes are not ported yet.
+        mesh: a ``parallel.make_mesh`` mesh: simplex blocks split over its
+            "simplex" axis, the cloud over its "witness" axis, partial
+            minima combined by min. Inputs and result are on its first
+            device.
         landmarks_in_cloud: every landmark is one of ``points``, which
             enables the exact nearest-vertex bound. Auto-True when the
             landmarks are FPS-sampled here.
-        device: device to run on (default "cuda"); inputs are moved there.
+        device: device to run on (default "cuda", or the mesh's first
+            device); inputs are moved there.
 
     Returns:
         dict mapping simplex tuples to filtration values, or a SimplexTree.
@@ -284,9 +290,19 @@ def flood_complex(
     if use_triton is not None and use_pallas is None:
         use_pallas = use_triton
     if mesh is not None:
-        raise NotImplementedError(
-            "multi-device meshes are not ported to flooder_tpu_torch yet"
-        )
+        if not isinstance(mesh, Mesh):
+            raise TypeError(
+                "mesh must be a flooder_tpu_torch.parallel.Mesh (from "
+                f"make_mesh), not {type(mesh).__name__}"
+            )
+        if device is None:
+            device = mesh.first_device
+        elif (torch.device(device).type != mesh.first_device.type
+              or mesh_device(device) != mesh.first_device):
+            raise ValueError(
+                f"device {device} is not the mesh's first device "
+                f"{mesh.first_device}"
+            )
 
     points = as_tensor(points, device=device)
     if points.dtype not in SUPPORTED_DTYPES:
@@ -334,7 +350,17 @@ def flood_complex(
     # Build the engine before the host Delaunay: its witness ordering is
     # queued on the device and runs while the host triangulates.
     with stage("engine-init"):
-        if dense:
+        if mesh is not None and dense:
+            engine = _cached_engine(
+                points, ("mesh-dense", wchunk, mesh),
+                lambda: MeshFloodEngine(points, wchunk, mesh),
+            )
+        elif mesh is not None:
+            engine = _cached_engine(
+                points, ("mesh-cuda", mesh),
+                lambda: MeshCudaFloodEngine(points, mesh),
+            )
+        elif dense:
             engine = _cached_engine(
                 points, ("dense", wchunk),
                 lambda: DenseFloodEngine(points, wchunk),

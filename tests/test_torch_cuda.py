@@ -431,3 +431,45 @@ def test_step_timer_on_cuda(cuda_device):
     kernel_s = start.elapsed_time(end) / 1e3
     assert kernel_s > 0.02
     assert t.stats.wall_s >= kernel_s
+
+
+@pytest.fixture
+def second_cuda_device(cuda_device):
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    return torch.device("cuda:1")
+
+
+def _mesh_against_single_card(devices, simplex_parallel, device):
+    """A mesh's complexes (grid and random mode) against the single-card
+    kernel engine on the mesh's first device: exactly equal, and K1
+    launched once per shard and pass."""
+    from flooder_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh(devices, simplex_parallel=simplex_parallel)
+    n_shards = mesh.shape["simplex"] * mesh.shape["witness"]
+    X = ft.generate_noisy_torus_points_3d(20000, seed=4, device=device)
+    L = ft.generate_landmarks(X, 120, start_idx=0, device=device)
+    for kw in (dict(points_per_edge=8),
+               dict(num_rand=64, points_per_edge=None)):
+        np.random.seed(1)
+        want = _complex(device, X, L, **kw)
+        np.random.seed(1)
+        k0 = cuda_flood.LAUNCHES
+        got = ft.flood_complex(X, L, mesh=mesh, **kw)
+        passes = 4 if "num_rand" in kw else 1  # dims 0-3, or the top only
+        assert cuda_flood.LAUNCHES == k0 + passes * n_shards
+        assert got.keys() == want.keys()
+        assert all(got[s] == v for s, v in want.items())
+
+
+def test_mesh_on_one_card_equals_single_card(cuda_device):
+    """The (2, 2) mesh of one card named four times."""
+    _mesh_against_single_card(["cuda:0"] * 4, 2, torch.device("cuda:0"))
+
+
+def test_mesh_on_second_card(second_cuda_device):
+    """A mesh over cuda:1 (the kernels launch on the shard's device, not
+    the current one) and a mesh over two cards."""
+    _mesh_against_single_card(["cuda:1"] * 2, 1, second_cuda_device)
+    _mesh_against_single_card(["cuda:1", "cuda:0"], 1, second_cuda_device)

@@ -147,7 +147,8 @@ def test_as_tensor_keeps_identity_and_converts():
 
 def test_unported_paths_raise():
     """float64 and the dense engine (use_pallas=False / use_triton=False)
-    are ported and return complexes; meshes and integer clouds raise."""
+    are ported and return complexes; a mesh that is not the port's Mesh
+    and integer clouds raise."""
     import flooder_tpu_torch as ft
 
     X = np.random.default_rng(0).random((300, 3))
@@ -163,7 +164,7 @@ def test_unported_paths_raise():
     for s, v in kernel.items():
         assert abs(dense[s] - v) < 1e-5 and alias[s] == dense[s]
         assert abs(f64[s] - v) < 3e-6
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="Mesh"):
         ft.flood_complex(X32, 10, mesh=object(), device="cpu")
     with pytest.raises(TypeError):
         ft.flood_complex(X.astype(np.int32), 10, device="cpu")
