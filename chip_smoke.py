@@ -32,8 +32,10 @@ Phases added with the dense engine and float64 (each fails the run if its
 check fails):
 
 - dims: K1 and K3 against their plain versions at 5, 6 and 8 coordinates
-  on seeded operands with several tiles a simplex and balls that cut
-  sub-chunks; the reference's 5-D grid and 6-D random edge cases through
+  (template instances) and at 9, 12, 16, 40 and 64 (the runtime-width
+  instance, bit for bit) on seeded operands with several tiles a simplex
+  and balls that cut sub-chunks; the reference's 5-D grid and 6-D random
+  edge cases through
   ``flood_complex`` on the card against the CPU run; K1 timed on a 200k
   5-D cloud; the pair loop of every K1 and K3 instance read from the SASS.
 - float64: K2's double instance against its plain version on the
@@ -43,6 +45,21 @@ check fails):
   test_float64, and timed on the 100k x 300 cheese.
 - dense: ``use_pallas=False`` in float32 against the kernel route on the
   100k x 300 cheese, timed.
+- wide (the runtime-width instances): generate_landmarks (K2) at 9, 12,
+  16, 40 and 100 coordinates, K2 against its plain version there and at
+  64 coordinates in float32 and 16 in float64, and timed at
+  1,000,000 uniform points (``--seed``) of 64 coordinates in float32 and
+  16 in float64; K3 beside K1 at 64 coordinates; and the slice's path, a
+  1,000,000-point 10-D swiss cheese (seed 42) through generate_landmarks,
+  flood_complex (24 landmarks, max_dimension 3, grid mode, points per edge
+  30 lowered to 15, and to 10 if K1's launch passes 20 s, each cut
+  printed) and persistence, with the launch counters set to 0 just before
+  it and read just after and its stages fenced; then K1's time and
+  in-ball pairs from the path's own launch (printed first), K2's picks
+  against its plain version on the path's cloud, K1's plain version on
+  two whole blocks of that launch (the longest and one from the middle),
+  a finite, monotone filtration with one essential H0 class, and the
+  kernel route against the dense engine on a 100,000-point cut.
 
 The cli phase (after the main path) saves the main path's cloud to a
 ``.npy`` and runs ``python -m flooder_tpu_torch.cli`` on it twice as a
@@ -65,6 +82,9 @@ prints the fenced time beside one card's and the per-shard balance and K1
 time with the LPT assignment and with the contiguous split. The examples
 phase runs each of ``flooder_tpu_torch/examples`` with ``--small`` on the
 card.
+
+Each kernel instance's SASS is printed as a digest (``sass_digests``), so
+two builds can be compared instance by instance.
 
 Output: ``#`` lines with every phase's result, then a ``{"kernels": ...}``
 JSON line, the card's name and power limit, and as the last line
@@ -112,7 +132,10 @@ K3_PLAIN_POINTS = 100_000  # the kernel-stats tool's default scene
 K3_PLAIN_LANDMARKS = 300
 K3_LONGEST_BLOCKS = 16  # K3's plain check at 1M x 1k: whole blocks
 K3_SPREAD_BLOCKS = 48
-HIGH_DIMS = (5, 6, 8)  # K1 and K3 held against their plain versions
+# K1 and K3 held against their plain versions: template instances at 5-8
+# coordinates, the runtime-width instance past 8 (bit for bit)
+WIDE_DIMS = (9, 12, 16, 40, 64)
+HIGH_DIMS = (5, 6, 8) + WIDE_DIMS
 DIM5_POINTS, DIM5_LANDMARKS, DIM5_PPE = 200_000, 64, 5  # K1 timed at 5-D
 F64_LANDMARKS = 150  # the reference's test_float64 clouds: 3000 x 150
 F64_POINTS = 3000
@@ -123,6 +146,27 @@ MESH_SMALL_POINTS, MESH_SMALL_LANDMARKS, MESH_SMALL_PPE = 20_000, 120, 8
 MESH_NUM_RAND = 64
 MESH_SMALL = ((4, 2), (3, 1), (4, 4))  # 2x2, 1x3, 4x1
 MESH_FULL = ((4, 2), (4, 1), (3, 1))  # 2x2, 1x4, 1x3
+# wide phase: generate_landmarks past 8 coordinates, K2 against its plain
+# version ((dim, dtype, points), 256 landmarks), and at full size (1M
+# uniform points from --seed, 1000 landmarks from index 0), against its
+# plain version there too
+WIDE_FPS_CHECKS = ((9, "float32", 100_000), (12, "float32", 100_000),
+                   (16, "float32", 200_000), (40, "float32", 100_000),
+                   (100, "float32", 100_000))
+WIDE_FPS_CHECK_LANDMARKS = 256
+WIDE_FPS_FULL = ((64, "float32"), (16, "float64"))
+# the slice's path: a 1M-point 10-D swiss cheese (seed 42), 24 FPS landmarks
+# from index 0, max_dimension 3, grid mode. Points per edge: 30 is asked
+# for, and lowered (30 -> 15 -> 10) while the path's K1 launch passes
+# WIDE_K1_LIMIT_S. 30 is cut without a launch: it has 5x the samples a
+# simplex of 15 (5,120 against 1,024), and the run prints that projection
+# from its own launch at 15, an upper estimate (10 -> 15, 4x the samples,
+# took 2.4x the time on an H100; at that rate 30 still takes ~2.8x).
+WIDE_POINTS, WIDE_DIM, WIDE_LANDMARKS, WIDE_TOP_DIM = 1_000_000, 10, 24, 3
+WIDE_PPE_ASKED, WIDE_PPE_CUTS = 30, (15, 10)
+WIDE_K1_LIMIT_S = 20.0
+WIDE_LONGEST_BLOCKS, WIDE_SPREAD_BLOCKS = 1, 1  # K1's plain check, blocks
+WIDE_CUT_POINTS, WIDE_CUT_PPE = 100_000, 5  # against the dense engine
 
 
 def log(msg):
@@ -137,12 +181,14 @@ def card_line(fields="name,power.limit"):
     return res.stdout.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps):
+def cuda_ms(fn, reps, warm_up=True):
     """Mean device time of ``fn`` over ``reps`` runs (CUDA events, after
-    one warm-up run)."""
+    one warm-up run unless ``warm_up`` is false: for launches of seconds,
+    whose kernel is already loaded)."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -179,6 +225,8 @@ def check_same_greedy(points, a, b, start):
         raise AssertionError(f"FPS start differs: {a[0]} {b[0]} {start}")
     if len(set(a.tolist())) != len(a):
         raise AssertionError("FPS kernel picked a point twice")
+    if np.array_equal(a, b):
+        return 0.0  # the same picks: the same distance at every step
     da, db = greedy_steps(points, a), greedy_steps(points, b)
     fin = np.isfinite(da)
     if not (np.isfinite(db) == fin).all():
@@ -208,8 +256,10 @@ def seeded_flood_operands(dim, device, r_count=1100, radius_max=3.0,
     """K1's operands at ``dim`` coordinates from ``CudaFloodEngine.prepare``
     (as tests/test_torch_cuda.py builds them): 16,384 uniform witnesses in
     [0, 5]^dim, 4 blocks of random simplices, radii in [0.1, radius_max)
-    with every fourth 1e-5 (it meets boxes but holds no witness), 1100
-    samples (3 tiles a simplex), the nearest-vertex bound on."""
+    (past 8 coordinates, where such balls hold no witness, the distance of
+    the 2nd to 299th nearest witness) with every fourth 1e-5 (it meets
+    boxes but holds no witness), 1100 samples (3 tiles a simplex), the
+    nearest-vertex bound on."""
     import torch
 
     from flooder_tpu_torch.ops import cuda_flood
@@ -220,6 +270,9 @@ def seeded_flood_operands(dim, device, r_count=1100, radius_max=3.0,
     S, k = cuda_flood.BS * 4, dim + 1
     centers = (rng.random((S, dim)) * 5).astype(np.float32)
     radii = (rng.random(S) * (radius_max - 0.1) + 0.1).astype(np.float32)
+    if dim > cuda_flood.KERNEL_MAX_DIM:
+        d = np.sort(np.linalg.norm(X[None] - centers[:, None], axis=-1), 1)
+        radii = d[np.arange(S), rng.integers(2, 300, S)].astype(np.float32)
     radii[::4] = 1e-5
     verts = centers[:, None, :] + (
         rng.random((S, k, dim)).astype(np.float32) - 0.5) * 0.3
@@ -322,6 +375,32 @@ def sass_pair_loops(lib_path):
                      _local_accesses(best) if best else None,
                      _local_accesses(o for _, o in ins)))
     return rows
+
+
+def sass_digests(lib_path):
+    """{instance: sha1 of its SASS} of a built library, from ``cuobjdump
+    -sass`` with the addresses and encodings dropped: two builds whose
+    instance has the same digest compiled it to the same instructions.
+    None where the toolkit has no cuobjdump."""
+    import hashlib
+
+    from torch.utils.cpp_extension import CUDA_HOME
+
+    from flooder_tpu_torch.native.build import kernel_instance
+
+    exe = shutil.which("cuobjdump") or os.path.join(CUDA_HOME or "", "bin",
+                                                    "cuobjdump")
+    if not os.path.exists(exe):
+        return None
+    text = subprocess.run([exe, "-sass", str(lib_path)], capture_output=True,
+                          text=True, timeout=120, check=True).stdout
+    out = {}
+    for block in text.split("Function : ")[1:]:
+        name = kernel_instance(block.split(None, 1)[0])
+        ins = re.findall(r"/\*[0-9a-f]{4,}\*/\s+([^;]*);", block)
+        body = "\n".join(" ".join(i.split()) for i in ins)
+        out[name] = hashlib.sha1(body.encode()).hexdigest()[:12]
+    return out
 
 
 def _local_accesses(ops):
@@ -729,9 +808,281 @@ def examples_phase():
     return walls
 
 
-def main():
+def wide_phase(seed):
+    """The runtime-width instances: K2 past 8 coordinates against its plain
+    version and at full size (1M x 64 float32, 1M x 16 float64), K3 beside
+    K1 at 64 coordinates, and the slice's path, a 1M-point 10-D swiss cheese
+    through generate_landmarks (K2), flood_complex (K1) and persistence,
+    with K2's plain version on the path's cloud, K1's plain version on whole
+    blocks of the path's launch and the dense engine on a 100k cut. Returns
+    the numbers of the kernels line."""
     import torch
 
+    import flooder_tpu_torch as ft
+    from flooder_tpu_torch.core import _grid_host
+    from flooder_tpu_torch.ops import cuda_flood, cuda_flood_stats, cuda_fps
+    from flooder_tpu_torch.ops.fps import farthest_point_sampling
+    from flooder_tpu_torch.tools.scene import block_slice
+    from flooder_tpu_torch.utils import stagetimer
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(dev).manual_seed(seed)
+    out = {"fps_err": {}, "fps_full": {}}
+
+    # ---- K2's runtime-width instance against its plain version ----------
+    for dim, dt, n in WIDE_FPS_CHECKS:
+        P = torch.rand(n, dim, generator=gen, device=dev,
+                       dtype=getattr(torch, dt))
+        f0 = cuda_fps.LAUNCHES
+        L = ft.generate_landmarks(P, WIDE_FPS_CHECK_LANDMARKS, start_idx=0)
+        if cuda_fps.LAUNCHES != f0 + 1:
+            raise AssertionError(f"generate_landmarks at {dim} coordinates "
+                                 "did not launch K2 once")
+        a = cuda_fps.cuda_farthest_point_sampling(
+            P, WIDE_FPS_CHECK_LANDMARKS, 0)
+        if not torch.equal(L, P[a]):
+            raise AssertionError(f"generate_landmarks at {dim} coordinates "
+                                 "differs from K2's selection")
+        b = farthest_point_sampling(P, WIDE_FPS_CHECK_LANDMARKS, 0)
+        err = check_same_greedy(P, a.cpu().numpy(), b.cpu().numpy(), 0)
+        out["fps_err"][f"{dim}-{dt}"] = err
+        log(f"K2 wide: generate_landmarks on {n} uniform points of {dim} "
+            f"coordinates ({dt}), {WIDE_FPS_CHECK_LANDMARKS} landmarks, one "
+            f"K2 launch; same greedy selection as the plain version, max "
+            f"|step d2 diff| {err}")
+    for dim, dt in WIDE_FPS_FULL:
+        P = torch.rand(WIDE_POINTS, dim, generator=gen, device=dev,
+                       dtype=getattr(torch, dt))
+        prep = cuda_fps._fps_prepare(P, 0)
+        ms = cuda_ms(lambda: cuda_fps.fps_kernel_run(prep, N_LANDMARKS), 3)
+        visits = int(cuda_fps.last_visits.item())
+        del prep
+        got = []
+        plain_ms = cuda_ms(lambda: got.append(
+            farthest_point_sampling(P, N_LANDMARKS, 0)), 1, warm_up=False)
+        b = got[0]
+        a = cuda_fps.cuda_farthest_point_sampling(P, N_LANDMARKS, 0)
+        err = check_same_greedy(P, a.cpu().numpy(), b.cpu().numpy(), 0)
+        peak = PEAK_FP64 if dt == "float64" else PEAK_FP32
+        t_ops = 3 * dim * visits * cuda_fps.FPS_CHUNK / peak
+        t_bytes = (P.numel() * P.element_size() + N_LANDMARKS * 4) / (
+            PEAK_BYTES)
+        bound = 1e3 * max(t_ops, t_bytes)
+        by = "operations" if t_ops >= t_bytes else "bytes"
+        read_gb = visits * cuda_fps.FPS_CHUNK * dim * P.element_size() / 1e9
+        out["fps_full"][f"{dim}-{dt}"] = dict(
+            ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
+            chunk_visits=visits, max_abs_err=err)
+        log(f"K2 wide fps {WIDE_POINTS} x {N_LANDMARKS}, {dim} coordinates "
+            f"{dt} (uniform, seed {seed}): same greedy selection as the plain "
+            f"version (max |step d2 diff| {err}); greedy loop {ms:.3f} ms "
+            f"({1e3 * ms / (N_LANDMARKS - 1):.2f} us a step), {visits} chunk "
+            f"visits of {WIDE_POINTS // cuda_fps.FPS_CHUNK + 1} chunks x "
+            f"{N_LANDMARKS - 1} steps ({read_gb:.1f} GB of coordinates "
+            f"streamed); plain {plain_ms:.1f} ms; bound {bound:.4f} ms ({by})")
+        del P, a, b
+
+    # ---- K3's runtime-width instance beside K1's, timed -----------------
+    dops = seeded_flood_operands(max(WIDE_DIMS), dev)
+    k1_ms = cuda_ms(lambda: cuda_flood.flood_min(*dops), 5)
+    k3_ms = cuda_ms(lambda: cuda_flood_stats.flood_min_stats(*dops), 5)
+    k3_plain_ms = cuda_ms(
+        lambda: cuda_flood_stats.flood_stats_reference(*dops), 1,
+        warm_up=False)
+    _, st = cuda_flood.flood_min(*dops)
+    inball = cuda_flood.kernel_operations(st)[1]
+    k3_bound, k3_by = flood_bound_ms(dops, inball)
+    out["k3"] = dict(ms=k3_ms, k1_ms=k1_ms, plain_ms=k3_plain_ms,
+                     bound_ms=k3_bound, bound_by=k3_by, inball_pairs=inball)
+    log(f"K3 wide at {max(WIDE_DIMS)} coordinates (the dims phase's seeded "
+        f"operands, {inball} in-ball pairs): kernel {k3_ms:.3f} ms (K1 "
+        f"{k1_ms:.3f} ms), bound {k3_bound:.4f} ms ({k3_by}), plain "
+        f"{k3_plain_ms:.1f} ms")
+    del dops, st
+
+    # ---- the slice's path: 1M x 10-D swiss cheese --------------------------
+    X = ft.generate_swiss_cheese_points(
+        WIDE_POINTS, rect_min=(0.0,) * WIDE_DIM, rect_max=(1.0,) * WIDE_DIM,
+        k=6, seed=42, device=dev)[0]
+    k1 = cuda_flood.flood_min
+    per_simplex = {p: int(np.prod(cuda_flood._tile_geometry(
+        _grid_host(p, WIDE_TOP_DIM)[0].shape[0])[:2]))
+        for p in (WIDE_PPE_ASKED,) + WIDE_PPE_CUTS}
+
+    def wide_path(ppe):
+        """The path through the entry points, with the counts set to 0 and
+        its stages fenced (FLOODER_TIMING's stage split; the stages take
+        seconds). K1's launches are timed and kept where the engine makes
+        them: (operands, (out, stats), ms)."""
+        calls = []
+
+        def flood_min_timed(*ops):
+            res = []
+            ms = cuda_ms(lambda: res.append(k1(*ops)), 1, warm_up=False)
+            calls.append((ops, res[0], ms))
+            return res[0]
+
+        cuda_fps.LAUNCHES = cuda_flood.LAUNCHES = 0
+        cuda_flood_stats.LAUNCHES = 0
+        torch.cuda.synchronize()
+        buf = io.StringIO()
+        stagetimer.ENABLED, cuda_flood.flood_min = True, flood_min_timed
+        try:
+            with contextlib.redirect_stderr(buf):
+                t0 = time.perf_counter()
+                with stagetimer.stage("fps"):
+                    L = ft.generate_landmarks(X, WIDE_LANDMARKS, start_idx=0)
+                stree = ft.flood_complex(X, L, max_dimension=WIDE_TOP_DIM,
+                                         points_per_edge=ppe,
+                                         return_simplex_tree=True)
+                t1 = time.perf_counter()
+                with stagetimer.stage("persistence"):
+                    stree.compute_persistence()
+                    diagrams = [stree.persistence_intervals_in_dimension(i)
+                                for i in range(WIDE_TOP_DIM)]
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+        finally:
+            stagetimer.ENABLED, cuda_flood.flood_min = False, k1
+        launches = {"fps": cuda_fps.LAUNCHES, "flood": cuda_flood.LAUNCHES}
+        split = {}
+        for name, sec in re.findall(
+                r"^\[flooder-timing\] (.+): ([0-9.]+)s$", buf.getvalue(),
+                flags=re.M):
+            split[name] = round(split.get(name, 0.0) + float(sec), 4)
+        log(f"wide path launches (one run, ppe {ppe}): {launches}")
+        if launches != {"fps": 1, "flood": 1} or len(calls) != 1:
+            raise AssertionError("the 10-D path must launch K2 once and K1 "
+                                 f"once: {launches}")
+        return dict(L=L, stree=stree, diagrams=diagrams, k1=calls[0],
+                    launches=launches, complex_s=t1 - t0,
+                    persistence_s=t2 - t1, stage_split_s=split)
+
+    # K1's in-ball pairs and ms are printed first; points per edge is cut
+    # while the launch passes WIDE_K1_LIMIT_S
+    cuts = [WIDE_PPE_ASKED]
+    for ppe in WIDE_PPE_CUTS:
+        run = wide_path(ppe)
+        ops, (out_k, stats_k), k1_ms = run["k1"]
+        units, inball = cuda_flood.kernel_operations(stats_k)
+        k1_bound, k1_by = flood_bound_ms(ops, inball)
+        s_total, nr, rt, _ = ops[0].shape
+        n_top = int(run["stree"]._verts[WIDE_TOP_DIM].shape[0])
+        log(f"K1 wide, the 10-D path's top pass ({WIDE_POINTS} witnesses, "
+            f"{n_top} tetrahedra, ppe {ppe}, {nr} x {rt} samples a simplex, "
+            f"{ops[-1].numel()} pairs): {inball} in-ball pairs, {units} "
+            f"admitted units; kernel {k1_ms:.1f} ms (the path's launch), "
+            f"bound {k1_bound:.1f} ms ({k1_by})")
+        if ppe == WIDE_PPE_CUTS[0]:
+            at_asked = k1_ms / 1e3 * (per_simplex[WIDE_PPE_ASKED]
+                                      / per_simplex[ppe])
+            log(f"points per edge cut from {WIDE_PPE_ASKED} to {ppe} without "
+                f"a launch: linear in the samples a simplex {per_simplex}, "
+                f"K1 would take {at_asked:.1f} s at {WIDE_PPE_ASKED} (limit "
+                f"{WIDE_K1_LIMIT_S:.0f} s a launch)")
+        cuts.append(ppe)
+        if k1_ms / 1e3 <= WIDE_K1_LIMIT_S:
+            break
+        log(f"K1 wide took {k1_ms / 1e3:.2f} s at ppe {ppe}, past "
+            f"{WIDE_K1_LIMIT_S:.0f} s" + (
+                "" if ppe == WIDE_PPE_CUTS[-1] else ": points per edge cut"))
+        if ppe != WIDE_PPE_CUTS[-1]:
+            del run, ops, out_k, stats_k
+    log(f"points per edge: {' -> '.join(map(str, cuts))}")
+
+    stree, diagrams, L = run["stree"], run["diagrams"], run["L"]
+    counts = [int(v.shape[0]) for v in stree._verts]
+    vals = np.concatenate(stree._filt)
+    if not np.isfinite(vals).all():
+        raise AssertionError("10-D path: non-finite filtration values")
+    if stree.make_filtration_non_decreasing():
+        raise AssertionError("10-D path: filtration was not monotone")
+    sizes = [len(d) for d in diagrams]
+    if int(np.isinf(diagrams[0][:, 1]).sum()) != 1:
+        raise AssertionError("10-D path: H0 must have one essential class")
+    out["path"] = {k: run[k] for k in ("launches", "complex_s",
+                                       "persistence_s", "stage_split_s")}
+    log(f"10-D path {WIDE_POINTS} x {WIDE_LANDMARKS}, ppe {ppe}: complex "
+        f"{counts} simplices, all finite and monotone, one essential H0 "
+        f"class; diagram sizes {sizes}; filtration in [{vals.min():.6f}, "
+        f"{vals.max():.6f}]; landmarks + flood_complex "
+        f"{run['complex_s']:.2f}s, persistence {run['persistence_s']:.2f}s "
+        f"(host clock)")
+    log(f"10-D path stage split (s, fenced; nested stages overlap): "
+        f"{json.dumps(run['stage_split_s'])}")
+    del stree, diagrams, run
+
+    # K2's pick on the path against its plain version on the same cloud
+    a = cuda_fps.cuda_farthest_point_sampling(X, WIDE_LANDMARKS, 0)
+    if not torch.equal(L, X[a]):
+        raise AssertionError("10-D path: the landmarks differ from K2's "
+                             "selection")
+    b = farthest_point_sampling(X, WIDE_LANDMARKS, 0)
+    out["path_fps_err"] = check_same_greedy(X, a.cpu().numpy(),
+                                            b.cpu().numpy(), 0)
+    log(f"K2 wide on the 10-D path's cloud ({WIDE_POINTS} points, "
+        f"{WIDE_LANDMARKS} landmarks): the path's landmarks are its picks, "
+        f"the same greedy selection as the plain version, max |step d2 "
+        f"diff| {out['path_fps_err']}")
+    del a, b
+
+    # K1's plain version on whole blocks of the path's launch: the longest
+    # and a spread
+    lens = (ops[-2][1:] - ops[-2][:-1]).cpu().numpy()
+    by_len = np.argsort(-lens, kind="stable")
+    rest = np.sort(by_len[WIDE_LONGEST_BLOCKS:])
+    blocks = np.concatenate([
+        by_len[:WIDE_LONGEST_BLOCKS],
+        rest[np.linspace(0, len(rest) - 1, WIDE_SPREAD_BLOCKS + 2)
+             .astype(int)[1:-1]],
+    ]).tolist()
+    sliced, rows = block_slice(ops, blocks)
+    got = []
+    plain_ms = cuda_ms(lambda: got.append(
+        cuda_flood.flood_pairs_reference(*sliced)), 1, warm_up=False)
+    out_p, stats_p = got[0]
+    stats_rows = stats_k.reshape(-1, nr, 2)[torch.as_tensor(blocks,
+                                                            device=dev)]
+    if not (torch.equal(out_k[rows], out_p)
+            and torch.equal(stats_rows.reshape(-1, 2), stats_p)):
+        raise AssertionError("K1 wide differs from its plain version on "
+                             "whole blocks of the 10-D path")
+    out["k1"] = dict(ms=k1_ms, bound_ms=k1_bound, bound_by=k1_by,
+                     inball_pairs=inball, admitted_units=units,
+                     plain_ms_on_blocks=plain_ms, blocks=len(blocks),
+                     ppe=ppe, ppe_cuts=cuts, tetrahedra=n_top)
+    log(f"K1 wide against its plain version on {len(blocks)} whole blocks "
+        f"of the 10-D path's launch ({WIDE_LONGEST_BLOCKS} with the longest "
+        f"pair list, blocks {blocks}, {sliced[-1].numel()} pairs, all "
+        f"{ops[1].shape[0]} witnesses): equal bit for bit, inf in the same "
+        f"places, every count equal; plain {plain_ms:.1f} ms")
+    del ops, out_k, stats_k, sliced, rows, out_p, stats_p
+
+    # ---- a 100k cut of the same cloud against the dense engine ------------
+    Xc = X[:WIDE_CUT_POINTS]
+    del X
+    Lc = ft.generate_landmarks(Xc, WIDE_LANDMARKS, start_idx=0)
+    kw = dict(points_per_edge=WIDE_CUT_PPE, max_dimension=WIDE_TOP_DIM)
+    kernel_route = complex_dict(Xc, Lc, "cuda", **kw)
+    dense_route = complex_dict(Xc, Lc, "cuda", use_pallas=False, **kw)
+    err = complex_diff(kernel_route, dense_route, 1e-5,
+                       "10-D cut: use_pallas=False against the kernel route")
+    out["cut_err"] = err
+    log(f"10-D cut {WIDE_CUT_POINTS} x {WIDE_LANDMARKS}, ppe {WIDE_CUT_PPE}: "
+        f"K1 route == the dense engine on {len(kernel_route)} simplices, max "
+        f"|diff| {err}")
+    return out
+
+
+def main(argv=None):
+    import argparse
+
+    import torch
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=42,
+                    help="seed of the wide phase's uniform clouds")
+    args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
     if not torch.cuda.is_available():
@@ -778,6 +1129,9 @@ def main():
         log(f"SASS {name}: (kernel, pair-loop instructions for 16 pairs, "
             f"local accesses in it, local accesses in the kernel) "
             f"{loops if loops is not None else 'cuobjdump not found'}")
+    for name in ("flood", "fps", "flood_stats"):
+        log(f"SASS digests {name}: "
+            f"{json.dumps(sass_digests(build.cuda_library(name)))}")
     t0 = time.perf_counter()
     build.load_persistence()
     log(f"native persistence build: {time.perf_counter() - t0:.2f}s")
@@ -1143,7 +1497,7 @@ def main():
         raise AssertionError("kernel_stats tool: other work than the main "
                              "path's dimension-3 pass")
 
-    # ---- dims: K1 and K3 at 5-8 coordinates -------------------------------
+    # ---- dims: K1 and K3 at 5-64 coordinates ------------------------------
     t_phase = time.perf_counter()
     k1_dim_err, k3_dim_err = {}, {}
     for dim in HIGH_DIMS:
@@ -1170,11 +1524,20 @@ def main():
         if not (torch.equal(out_3, out_d) and stats_3[
                 :, cuda_flood_stats.COL_TILES].sum().item() == units_d):
             raise AssertionError(f"K3<{dim}> differs from K1<{dim}>")
+        if dim > cuda_flood.KERNEL_MAX_DIM and not (
+                torch.equal(out_d, out_dp) and torch.equal(out_3, out_3p)):
+            raise AssertionError(f"the runtime-width K1 and K3 at {dim} "
+                                 "coordinates differ from their plain "
+                                 "versions in some bit or inf")
+        masked_d = out_dp >= cuda_flood._MASKED_D2
+        n_inf = int(torch.isinf(out_dp).sum())
         log(f"dim {dim}: K1 max |d2 diff| {k1_dim_err[dim]} and K3 "
-            f"{k3_dim_err[dim]} against their plain versions, inf in the same "
-            f"places, {units_d} admitted units equal, K3 counters equal "
-            f"(column sums {stats_3.sum(0).tolist()}), K3 == K1; {nr_d} tiles "
-            f"a simplex, {inball_d} in-ball of "
+            f"{k3_dim_err[dim]} against their plain versions"
+            f"{' (bit for bit)' if dim > cuda_flood.KERNEL_MAX_DIM else ''}, "
+            f"inf in the same places ({int(masked_d.sum()) - n_inf} finite "
+            f">= 1e30, {n_inf} +inf), {units_d} admitted units equal, K3 "
+            f"counters equal (column sums {stats_3.sum(0).tolist()}), K3 == "
+            f"K1; {nr_d} tiles a simplex, {inball_d} in-ball of "
             f"{units_d * cuda_flood.SUB * rt_d} pairs")
     del dops, out_d, stats_d, out_dp, stats_dp, out_3, stats_3, out_3p
     del stats_3p
@@ -1308,6 +1671,11 @@ def main():
     del C32, LC, k1_route, dense_route
     log(f"dense phase: {time.perf_counter() - t_phase:.1f}s")
 
+    # ---- wide: the runtime-width instances past 8 coordinates ---------------
+    t_phase = time.perf_counter()
+    wide = wide_phase(args.seed)
+    log(f"wide phase: {time.perf_counter() - t_phase:.1f}s")
+
     # ---- mesh: K1 once per shard ---------------------------------------------
     t_phase = time.perf_counter()
     main_complex = {tuple(sm): f for sm, f in stree.get_simplices()}
@@ -1335,6 +1703,9 @@ def main():
             "ms_5d_200k_x_64": k1_5d_ms, "bound_ms_5d_200k_x_64": k1_5d_bound,
             "bound_by_5d": k1_5d_by,
             "mesh": mesh,
+            "wide_10d_path": wide["k1"],
+            "wide_10d_path_launches": wide["path"]["launches"]["flood"],
+            "max_abs_err_wide_cut_vs_dense": wide["cut_err"],
         },
         {
             "name": "fps", "route": "cuda",
@@ -1353,6 +1724,10 @@ def main():
             "us_per_step_float64": 1e3 * k2_64_ms / (N_LANDMARKS - 1),
             "plain_ms_float64": k2_64_plain, "bound_ms_float64": k2_64_bound,
             "bound_by_float64": k2_64_by, "chunk_visits_float64": visits64,
+            "max_abs_err_wide": wide["fps_err"],
+            "wide_1m": wide["fps_full"],
+            "wide_10d_path_launches": wide["path"]["launches"]["fps"],
+            "max_abs_err_wide_10d_path": wide["path_fps_err"],
         },
         {
             "name": "flood_min_stats", "route": "cuda",
@@ -1372,6 +1747,7 @@ def main():
             "computed_tiles": k3_tiles, "admitted_subchunks": k3_subchunks,
             "visited_pairs": k3_visited,
             "max_abs_err_by_dim": {str(d): e for d, e in k3_dim_err.items()},
+            "wide_64d_seeded": wide["k3"],
         },
     ]
     log(f"chip_smoke wall time: {time.perf_counter() - t_start:.1f}s")

@@ -62,9 +62,19 @@
 // in the ball". The caller gets per-CTA counts of admitted units and of
 // in-ball pairs, from which the bound is computed.
 //
-// Built for 1-8 coordinates, K2's range. At 5-8 a staged witness is two
+// Template instances for 1-8 coordinates. At 5-8 a staged witness is two
 // float4 (the pair loop reads it with two LDS.128), and at 8 the raw fetch
 // buffer moves to dynamic shared memory; the code for 1-4 is unchanged.
+//
+// 9 and more coordinates: one runtime-width instance, flood_min_wide (the
+// forms in flood_common.cuh). The same grid, launch order, work-list walk
+// and tests, on a coordinate-major copy of the samples; each admitted unit
+// stages its witnesses ball-local into shared memory, in pieces of
+// wide_piece(dim), compacted to the in-ball ones, and each thread sums
+// SPT x WIDE_W pairs at once over the coordinates. No FMA: its outputs and
+// counts equal the plain version's bit for bit. It has no cp.async fetch
+// and no staging pipeline (two barriers a piece and one a unit); bound as
+// above by fp32 issue, 3 instructions per coordinate of an in-ball pair.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -244,6 +254,132 @@ cudaError_t launch(const float *samples, const float *witnesses,
   return e;
 }
 
+// The runtime-width instance (9 and more coordinates): see the note at the
+// top and flood_common.cuh.
+__global__ void __launch_bounds__(MAX_RT / SPT) flood_min_wide(
+    const float *__restrict__ samples_t,  // (S, NR, dim, RT) ball-local
+    const float *__restrict__ witnesses,  // (W, dim) kd-ordered
+    const float *__restrict__ sub_lo,     // (W / SUB, dim) sub-chunk boxes
+    const float *__restrict__ sub_hi,
+    const float *__restrict__ centers,  // (S, dim)
+    const float *__restrict__ radii,    // (S,)
+    const float *__restrict__ tile_lo,  // (S, NR, dim) ball-local
+    const float *__restrict__ tile_hi,
+    const float *__restrict__ ub2,        // (S, NR)
+    const int *__restrict__ blk_ptr,      // (n_blk + 1,) CSR offsets
+    const int *__restrict__ blk_chunks,   // chunk ids, nearest first
+    const int *__restrict__ cta_order,    // (n_blk,) block of each CTA row
+    float *__restrict__ out,              // (S, NR, RT) min d^2
+    long long *__restrict__ stats,        // (n_blk * NR, 2)
+    int nr, int rt, int bs, int spc, int dim, int piece) {
+  // ws: the staged piece, (dim, piece); c: the simplex's centre; tlo, thi:
+  // the tile's sample box
+  extern __shared__ __align__(16) float dyn[];
+  float *ws = dyn;
+  float *c = ws + (size_t)dim * piece;
+  float *tlo = c + dim, *thi = tlo + dim;
+  __shared__ int cnt[2][2];  // a piece's front and back counts, by parity
+  __shared__ float wmax[MAX_WARPS];
+
+  const int b = cta_order[blockIdx.x / nr];
+  const int r = blockIdx.x - (blockIdx.x / nr) * nr;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+  const int c0 = blk_ptr[b], c1 = blk_ptr[b + 1];
+  long long units = 0, inball = 0;
+  int pc = 0;  // pieces staged so far; piece i counts in cnt[i & 1]
+  if (tid < 4) cnt[tid >> 1][tid & 1] = 0;
+
+  for (int si = 0; si < bs; ++si) {
+    const int s = b * bs + si;
+    const size_t tile = (size_t)s * nr + r;
+    __syncthreads();  // the last simplex's readers of c, tlo, thi are done
+    for (int d = tid; d < dim; d += T) {
+      c[d] = centers[(size_t)s * dim + d];
+      tlo[d] = tile_lo[tile * dim + d];
+      thi[d] = tile_hi[tile * dim + d];
+    }
+    __syncthreads();
+    const float rad = radii[s];
+    const float r2 = __fmul_rn(rad, rad);
+    const float ub = ub2[tile];
+    const float *xt = samples_t + tile * dim * rt;
+    float acc[SPT];
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) acc[k] = CUDART_INF_F;
+    float pm = CUDART_INF_F;  // the tile's max of acc
+
+    for (int p = c0; p < c1; ++p) {
+      for (int q = 0; q < spc; ++q) {
+        const int sub = blk_chunks[p] * spc + q;
+        if (!(flood::near2_wide(sub_lo, sub_hi, sub, c, dim) <= r2))
+          continue;  // skip 1
+        if (!(flood::gap2_wide(sub_lo, sub_hi, sub, c, tlo, thi, dim) <=
+              fminf(pm, ub)))
+          continue;  // skip 2
+        int total = 0;
+        for (int p0 = 0; p0 < SUB; p0 += piece, ++pc) {
+          int *cn = cnt[pc & 1];
+          __syncthreads();  // readers of ws and of the other counts done
+          if (tid == 0) cnt[(pc + 1) & 1][0] = cnt[(pc + 1) & 1][1] = 0;
+          flood::stage_wide(witnesses, sub, p0, min(piece, SUB - p0), c, r2,
+                            dim, ws, piece, cn);
+          __syncthreads();
+          const int m = cn[0];
+          total += m;
+          flood::min_over_piece_wide<SPT>(
+              ws, piece, (m + flood::WIDE_W - 1) / flood::WIDE_W *
+                  flood::WIDE_W, xt, rt, dim, acc);
+        }
+        if (total == 0) flood::fold_masked_wide<SPT>(xt, rt, dim, acc);
+        units += 1;
+        inball += total;
+        float wm = acc[0];
+#pragma unroll
+        for (int k = 1; k < SPT; ++k) wm = fmaxf(wm, acc[k]);
+        for (int off = 16; off > 0; off >>= 1)
+          wm = fmaxf(wm, __shfl_xor_sync(flood::FULL, wm, off));
+        if (lane == 0) wmax[warp] = wm;
+        __syncthreads();
+        pm = wmax[0];
+        for (int w = 1; w < nw; ++w) pm = fmaxf(pm, wmax[w]);
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SPT; ++k) out[tile * rt + tid + k * T] = acc[k];
+  }
+  if (tid == 0) {
+    const size_t row = (size_t)b * nr + r;
+    stats[2 * row] = units;
+    stats[2 * row + 1] = inball * rt;
+  }
+}
+
+cudaError_t launch_wide(const float *samples_t, const float *witnesses,
+                        const float *sub_lo, const float *sub_hi,
+                        const float *centers, const float *radii,
+                        const float *tile_lo, const float *tile_hi,
+                        const float *ub2, const int *blk_ptr,
+                        const int *blk_chunks, const int *cta_order,
+                        float *out, long long *stats, int n_blk, int nr,
+                        int rt, int bs, int spc, int dim,
+                        cudaStream_t stream, long long *launched) {
+  const long long ctas = (long long)n_blk * nr;
+  if (ctas == 0) return cudaSuccess;
+  const int piece = flood::wide_piece(dim);
+  const size_t smem = ((size_t)piece + 3) * dim * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      flood_min_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
+  flood_min_wide<<<(unsigned)ctas, rt / SPT, smem, stream>>>(
+      samples_t, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, tile_hi,
+      ub2, blk_ptr, blk_chunks, cta_order, out, stats, nr, rt, bs, spc, dim,
+      piece);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -255,7 +391,10 @@ const char *flooder_cuda_error_string(int code) {
 int flood_sub() { return SUB; }
 
 // Launch K1 on `stream`. `rt` must be a multiple of 128 and at most 512;
-// `dim` 1..8; `cta_order` a permutation of the blocks (CTA row i runs block
+// `dim` at least 1; `samples` (S, NR, RT, dim) for 1-8 coordinates and
+// coordinate-major, (S, NR, dim, RT), for more (flood_min_wide, whose
+// shared memory, 4 * dim * (wide_piece(dim) + 3) bytes, caps dim at 5,282);
+// `cta_order` a permutation of the blocks (CTA row i runs block
 // cta_order[i]); `witnesses` 16-byte aligned. *launched is set to the
 // number of kernel launches enqueued without error (0 when there is no
 // CTA). Returns 0 or the CUDA launch error.
@@ -287,7 +426,12 @@ int flood_min_launch(const float *samples, const float *witnesses,
     case 6: e = FLOOD_MIN_LAUNCH(6); break;
     case 7: e = FLOOD_MIN_LAUNCH(7); break;
     case 8: e = FLOOD_MIN_LAUNCH(8); break;
-    default: e = cudaErrorInvalidValue;
+    default:
+      e = dim < 1 ? cudaErrorInvalidValue
+                  : launch_wide(samples, witnesses, sub_lo, sub_hi, centers,
+                                radii, tile_lo, tile_hi, ub2, blk_ptr,
+                                blk_chunks, cta_order, out, stats, n_blk, nr,
+                                rt, bs, subs_per_chunk, dim, s, launched);
   }
 #undef FLOOD_MIN_LAUNCH
   return static_cast<int>(e);

@@ -21,14 +21,28 @@
 // lane copying its own slots (fetch_raw), and later staged ball-local into
 // a shared tile by the same lanes (stage_compacted), so the raw copy needs
 // no barrier. A staged witness is one float4 up to 4 coordinates and two
-// (Staged8) for 5-8, with the components past DIM at 0; the kernels are
-// built for 1-8 coordinates, K2's range. Staging compacts each
+// (Staged8) for 5-8, with the components past DIM at 0; the template
+// instances take 1-8 coordinates. Staging compacts each
 // SEGW-witness segment: in-ball witnesses to the front (warp ballot +
 // popc), out-of-ball ones (moved to MASK) behind them. The inner loop
 // (min_over_staged) runs over the in-ball count rounded up to UNROLL, so
 // padding slots hold out-of-ball witnesses, and a sub-chunk with none in
 // the ball folds in the one value such a witness gives: min is exact, so
 // the result is the min over all SUB witnesses bit for bit.
+//
+// Runtime width (9 and more coordinates; the *_wide forms at the end). A
+// sample's or witness's coordinates no longer fit in registers, so a unit's
+// witnesses are staged ball-local into dynamic shared memory, indexed by
+// coordinate ((dim, piece) floats), in pieces of `piece` witnesses that fit
+// beside the kernel's other buffers (wide_piece; the sub-chunk of SUB stays
+// the unit of admission and counting). Samples are read from device memory
+// in a coordinate-major copy, (S, NR, dim, RT), so that a warp's loads of
+// one coordinate are contiguous; a tile's samples stay in L1 across a
+// unit. Each thread keeps SPT samples x WIDE_W witnesses of partial sums in
+// registers and walks the coordinates once for them. Every pair's d2 is
+// summed in coordinate order with separately rounded operations, as the
+// plain versions do (no FMA), so the wide instances equal their plain
+// versions bit for bit, and K3's wide instance equals K1's.
 
 #pragma once
 
@@ -44,11 +58,21 @@ constexpr int SEGW = 128;         // witnesses per staging segment (4 a lane)
 constexpr int NSEG = SUB / SEGW;  // segments per sub-chunk
 constexpr int UNROLL = 4;         // inner-loop unroll; counts round up to it
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_DIM = 8;
-// A masked witness's d2 against a ball-local sample is about
-// DIM * MASK^2, 7.2e37 at DIM 8: under FLT_MAX (3.4e38) by a factor of 4.7,
-// so it stays finite and at or above the callers' 1e30 "no witness" mark.
+constexpr int MAX_DIM = 8;  // the widest template instance
+// A masked witness's d2 against a ball-local sample is a sum of dim terms of
+// about MASK^2 = 9e36, in coordinate order. For the template instances
+// (dim <= 8) it is at most 7.2e37, under FLT_MAX (3.4e38) by a factor of
+// 4.7: finite and at or above the callers' 1e30 "no witness" mark.
 static_assert(MAX_DIM * 9e36f < 3.4e38f, "masked d2 must stay finite");
+// The wide instances sum the same terms in the same order with the same
+// rounding as the plain versions (cuda_flood.py, cuda_flood_stats.py), so a
+// masked d2 is the plain version's value bit for bit: finite (>= 8.1e37)
+// up to 37 coordinates, and +inf from 38 on, where 38 * 9e36 passes
+// FLT_MAX. Both sides then act alike on it: a unit with no in-ball witness
+// folds in +inf (fminf leaves acc as it was, torch.minimum too); a tile
+// whose samples met no in-ball witness keeps acc = +inf, so its max is
+// +inf and the tile bound min(+inf, ub2) is ub2 on both sides; and the
+// callers' _inf_masked maps every d2 >= 1e30, finite or not, to +inf.
 
 // A staged witness of 5-8 coordinates: two float4, read as two LDS.128.
 struct __align__(16) Staged8 {
@@ -262,6 +286,127 @@ __device__ __forceinline__ int min_over_staged(const Staged<DIM> *wsh,
       acc[k] = fminf(acc[k], pair_d2<DIM>(m, x[k]));
   }
   return total;
+}
+
+// ---------------------------------------------------------------------------
+// Runtime width: the forms of the wide instances (9 and more coordinates)
+// ---------------------------------------------------------------------------
+
+constexpr int WIDE_W = 8;  // witnesses a thread sums at once (register tile)
+// Bytes of a staged piece that wide_piece aims at: 8 CTAs of 128 threads
+// fill an SM, and 8 such pieces fit in its 228 KB of shared memory.
+constexpr int WIDE_PIECE_BYTES = 24 * 1024;
+
+// Witnesses staged at once at `dim` coordinates: a multiple of WIDE_W, at
+// most SUB and at least WIDE_W (the CTA's shared memory then caps dim).
+__host__ __device__ constexpr int wide_piece(int dim) {
+  const int fit = WIDE_PIECE_BYTES / (4 * dim) / WIDE_W * WIDE_W;
+  return fit < WIDE_W ? WIDE_W : fit > SUB ? SUB : fit;
+}
+
+// The ball test at runtime width: squared distance from the centre c to
+// sub-chunk `sub`'s box.
+__device__ __forceinline__ float near2_wide(const float *sub_lo,
+                                            const float *sub_hi, int sub,
+                                            const float *c, int dim) {
+  float n2 = 0.f;
+  for (int d = 0; d < dim; ++d) {
+    const float lo = sub_lo[(size_t)sub * dim + d];
+    const float hi = sub_hi[(size_t)sub * dim + d];
+    n2 = sq_add(n2, __fsub_rn(fminf(fmaxf(c[d], lo), hi), c[d]));
+  }
+  return n2;
+}
+
+// The squared gap between sub-chunk `sub`'s box and a ball-local sample box
+// (a tile's, or a simplex's) at runtime width.
+__device__ __forceinline__ float gap2_wide(const float *sub_lo,
+                                           const float *sub_hi, int sub,
+                                           const float *c, const float *tlo,
+                                           const float *thi, int dim) {
+  float g2 = 0.f;
+  for (int d = 0; d < dim; ++d) {
+    const float blo = __fsub_rn(sub_lo[(size_t)sub * dim + d], c[d]);
+    const float bhi = __fsub_rn(sub_hi[(size_t)sub * dim + d], c[d]);
+    const float g =
+        fmaxf(fmaxf(__fsub_rn(blo, thi[d]), __fsub_rn(tlo[d], bhi)), 0.f);
+    g2 = sq_add(g2, g);
+  }
+  return g2;
+}
+
+// Stage witnesses [p0, p0 + n) of sub-chunk `sub` (n a multiple of WIDE_W)
+// into ws, (dim, piece) floats: ball-local, the in-ball ones at the front
+// and the out-of-ball ones, moved to MASK, at the back, so the slots from
+// the in-ball count up to n hold masked witnesses. cnt[0] and cnt[1] count
+// the front and the back and must be 0 on entry; the order within each part
+// is arbitrary, which min does not see. Readers need a barrier after it.
+__device__ __forceinline__ void stage_wide(const float *witnesses, int sub,
+                                           int p0, int n, const float *c,
+                                           float r2, int dim, float *ws,
+                                           int piece, int *cnt) {
+  for (int w = threadIdx.x; w < n; w += blockDim.x) {
+    const float *y = witnesses + ((size_t)sub * SUB + p0 + w) * dim;
+    float y2 = 0.f;
+    for (int d = 0; d < dim; ++d) y2 = sq_add(y2, __fsub_rn(y[d], c[d]));
+    const bool in = y2 <= r2;
+    const int pos =
+        in ? atomicAdd(&cnt[0], 1) : n - 1 - atomicAdd(&cnt[1], 1);
+    for (int d = 0; d < dim; ++d)
+      ws[(size_t)d * piece + pos] = in ? __fsub_rn(y[d], c[d]) : MASK;
+  }
+}
+
+// acc[k] = min(acc[k], d2 from sample k to each of the first m_pad staged
+// witnesses, m_pad a multiple of WIDE_W): xt[d * rt + j] is coordinate d of
+// the tile's sample j, and this thread's samples are j = threadIdx.x +
+// k * blockDim.x. Each d2 is summed in coordinate order, separately rounded.
+template <int SPT>
+__device__ __forceinline__ void min_over_piece_wide(
+    const float *ws, int piece, int m_pad, const float *__restrict__ xt,
+    int rt, int dim, float (&acc)[SPT]) {
+  const int j0 = threadIdx.x, T = blockDim.x;
+  for (int w0 = 0; w0 < m_pad; w0 += WIDE_W) {
+    float d2[SPT][WIDE_W];
+#pragma unroll
+    for (int k = 0; k < SPT; ++k)
+#pragma unroll
+      for (int i = 0; i < WIDE_W; ++i) d2[k][i] = 0.f;
+    for (int d = 0; d < dim; ++d) {
+      const float4 *yv =
+          reinterpret_cast<const float4 *>(ws + (size_t)d * piece + w0);
+      const float4 ya = yv[0], yb = yv[1];
+      const float y[WIDE_W] = {ya.x, ya.y, ya.z, ya.w,
+                               yb.x, yb.y, yb.z, yb.w};
+#pragma unroll
+      for (int k = 0; k < SPT; ++k) {
+        const float x = __ldg(xt + (size_t)d * rt + j0 + k * T);
+#pragma unroll
+        for (int i = 0; i < WIDE_W; ++i)
+          d2[k][i] = sq_add(d2[k][i], __fsub_rn(y[i], x));
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < SPT; ++k)
+#pragma unroll
+      for (int i = 0; i < WIDE_W; ++i) acc[k] = fminf(acc[k], d2[k][i]);
+  }
+}
+
+// Fold in the value every out-of-ball witness gives (a unit with no in-ball
+// witness): the sum over d of (MASK - x[d])^2, in coordinate order.
+template <int SPT>
+__device__ __forceinline__ void fold_masked_wide(const float *__restrict__ xt,
+                                                 int rt, int dim,
+                                                 float (&acc)[SPT]) {
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+    const float *x = xt + threadIdx.x + k * blockDim.x;
+    float m2 = 0.f;
+    for (int d = 0; d < dim; ++d)
+      m2 = sq_add(m2, __fsub_rn(MASK, __ldg(x + (size_t)d * rt)));
+    acc[k] = fminf(acc[k], m2);
+  }
 }
 
 }  // namespace flood

@@ -66,6 +66,14 @@
 // tests, staging, barrier waits and the tail of the last wave: without the
 // launch order the longest simplices finish last and the kernel takes
 // about 1.2x as long. Measured times beside the floor: PERF.md.
+//
+// 9 and more coordinates: one runtime-width instance, flood_stats_wide,
+// with K1's wide forms (flood_common.cuh): the same tests, counters and
+// launch order, one group of rt / SPT threads a CTA that computes a unit's
+// tiles one after another, the running mins in `out` (each thread reads and
+// writes only its own samples) and the tile maxima double-buffered in
+// shared memory as above. No FMA: its output equals K1's wide instance and
+// its plain version bit for bit.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -307,6 +315,184 @@ cudaError_t launch(const float *samples, const float *witnesses,
   return e;
 }
 
+// The runtime-width instance (9 and more coordinates); see the note at the
+// top.
+__global__ void __launch_bounds__(MAX_RT / SPT) flood_stats_wide(
+    const float *__restrict__ samples_t,  // (S, NR, dim, RT) ball-local
+    const float *__restrict__ witnesses,  // (W, dim) kd-ordered
+    const float *__restrict__ sub_lo,     // (W / SUB, dim) sub-chunk boxes
+    const float *__restrict__ sub_hi,
+    const float *__restrict__ centers,  // (S, dim)
+    const float *__restrict__ radii,    // (S,)
+    const float *__restrict__ tile_lo,  // (S, NR, dim) ball-local
+    const float *__restrict__ tile_hi,
+    const float *__restrict__ ub2,        // (S, NR)
+    const int *__restrict__ blk_ptr,      // (n_blk + 1,) CSR offsets
+    const int *__restrict__ blk_chunks,   // chunk ids, nearest first
+    const int *__restrict__ sim_order,    // (S,) simplex of each CTA
+    float *__restrict__ out,              // (S, NR, RT) min d^2
+    long long *__restrict__ stats,        // (S, 3)
+    int nr, int rt, int bs, int spc, int dim, int piece) {
+  // ws: the staged piece, (dim, piece); c: the centre; slo, shi: the
+  // simplex's sample box; wmax: two buffers of (nr, MAX_GROUP_WARPS), per
+  // tile and warp that warp's max of the tile's running mins
+  extern __shared__ __align__(16) float dyn[];
+  float *ws = dyn;
+  float *c = ws + (size_t)dim * piece;
+  float *slo = c + dim, *shi = slo + dim;
+  float *wmax = shi + dim;
+  __shared__ int cnt[2][2];  // a piece's front and back counts, by parity
+
+  const int s = sim_order[blockIdx.x];
+  const int b = s / bs;
+  const int tid = threadIdx.x, T = blockDim.x;
+  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+  const int c0 = blk_ptr[b], c1 = blk_ptr[b + 1];
+  const size_t row0 = (size_t)s * nr;  // the simplex's first tile
+
+  if (tid < 4) cnt[tid >> 1][tid & 1] = 0;
+  for (int i = tid; i < 2 * nr * MAX_GROUP_WARPS; i += T)
+    wmax[i] = CUDART_INF_F;
+  for (int r = 0; r < nr; ++r)
+#pragma unroll
+    for (int k = 0; k < SPT; ++k)
+      out[(row0 + r) * rt + tid + k * T] = CUDART_INF_F;
+  for (int d = tid; d < dim; d += T) {
+    c[d] = centers[(size_t)s * dim + d];
+    float lo = tile_lo[row0 * dim + d], hi = tile_hi[row0 * dim + d];
+    for (int r = 1; r < nr; ++r) {
+      lo = fminf(lo, tile_lo[(row0 + r) * dim + d]);
+      hi = fmaxf(hi, tile_hi[(row0 + r) * dim + d]);
+    }
+    slo[d] = lo;
+    shi[d] = hi;
+  }
+  const float rad = radii[s];
+  const float r2 = __fmul_rn(rad, rad);
+  int units = 0, tiles = 0;
+  int pc = 0;   // pieces staged so far; piece i counts in cnt[i & 1]
+  int cur = 0;  // the wmax buffer that holds the published maxima
+  __syncthreads();
+
+  auto wmax_at = [&](int buf, int r) {
+    return wmax + (buf * nr + r) * MAX_GROUP_WARPS;
+  };
+  auto tile_max = [&](int r) {  // tile r's current max running min
+    const float *m = wmax_at(cur, r);
+    float v = m[0];
+    for (int w = 1; w < nw; ++w) v = fmaxf(v, m[w]);
+    return v;
+  };
+  auto tile_pass = [&](int sub, int r) {  // test 3
+    const size_t tile = row0 + r;
+    return flood::gap2_wide(sub_lo, sub_hi, sub, c, tile_lo + tile * dim,
+                            tile_hi + tile * dim, dim) <=
+           fminf(tile_max(r), ub2[tile]);
+  };
+
+  for (int p = c0; p < c1; ++p) {
+    // test 2's bound, from the maxima at the start of the pair
+    float s_bound = tile_max(0);
+    for (int r = 1; r < nr; ++r) s_bound = fmaxf(s_bound, tile_max(r));
+    for (int q = 0; q < spc; ++q) {
+      const int sub = blk_chunks[p] * spc + q;
+      if (!(flood::near2_wide(sub_lo, sub_hi, sub, c, dim) <= r2))
+        continue;  // test 1
+      if (!(flood::gap2_wide(sub_lo, sub_hi, sub, c, slo, shi, dim) <=
+            s_bound))
+        continue;  // test 2
+      ++units;
+      int k = 0;  // the unit's computed tiles
+      for (int r = 0; r < nr; ++r) k += tile_pass(sub, r);
+      if (k == 0) continue;
+      tiles += k;
+      int total = 0;
+      for (int p0 = 0; p0 < SUB; p0 += piece, ++pc) {
+        int *cn = cnt[pc & 1];
+        __syncthreads();  // readers of ws and of the other counts done
+        if (tid == 0) cnt[(pc + 1) & 1][0] = cnt[(pc + 1) & 1][1] = 0;
+        flood::stage_wide(witnesses, sub, p0, min(piece, SUB - p0), c, r2,
+                          dim, ws, piece, cn);
+        __syncthreads();
+        const int m = cn[0];
+        total += m;
+        if (m == 0) continue;
+        const int m_pad = (m + flood::WIDE_W - 1) / flood::WIDE_W *
+                          flood::WIDE_W;
+        for (int r = 0; r < nr; ++r) {
+          if (!tile_pass(sub, r)) continue;
+          float *mins = out + (row0 + r) * rt + tid;
+          float acc[SPT];
+#pragma unroll
+          for (int kk = 0; kk < SPT; ++kk) acc[kk] = mins[kk * T];
+          flood::min_over_piece_wide<SPT>(ws, piece, m_pad,
+                                          samples_t + (row0 + r) * dim * rt,
+                                          rt, dim, acc);
+#pragma unroll
+          for (int kk = 0; kk < SPT; ++kk) mins[kk * T] = acc[kk];
+        }
+      }
+      // publish the computed tiles' maxima in the other buffer, and carry
+      // the other tiles' maxima over to it
+      for (int r = 0; r < nr; ++r) {
+        if (!tile_pass(sub, r)) {
+          if (tid < nw) wmax_at(cur ^ 1, r)[tid] = wmax_at(cur, r)[tid];
+          continue;
+        }
+        float *mins = out + (row0 + r) * rt + tid;
+        float acc[SPT];
+#pragma unroll
+        for (int kk = 0; kk < SPT; ++kk) acc[kk] = mins[kk * T];
+        if (total == 0) {
+          flood::fold_masked_wide<SPT>(samples_t + (row0 + r) * dim * rt,
+                                       rt, dim, acc);
+#pragma unroll
+          for (int kk = 0; kk < SPT; ++kk) mins[kk * T] = acc[kk];
+        }
+        float wm = acc[0];
+#pragma unroll
+        for (int kk = 1; kk < SPT; ++kk) wm = fmaxf(wm, acc[kk]);
+        for (int off = 16; off > 0; off >>= 1)
+          wm = fmaxf(wm, __shfl_xor_sync(flood::FULL, wm, off));
+        if (lane == 0) wmax_at(cur ^ 1, r)[warp] = wm;
+      }
+      __syncthreads();  // the other buffer is complete; no test reads cur
+      cur ^= 1;
+    }
+  }
+  if (tid == 0) {
+    stats[3 * (size_t)s] = c1 - c0;
+    stats[3 * (size_t)s + 1] = units;
+    stats[3 * (size_t)s + 2] = tiles;
+  }
+}
+
+cudaError_t launch_wide(const float *samples_t, const float *witnesses,
+                        const float *sub_lo, const float *sub_hi,
+                        const float *centers, const float *radii,
+                        const float *tile_lo, const float *tile_hi,
+                        const float *ub2, const int *blk_ptr,
+                        const int *blk_chunks, const int *sim_order,
+                        float *out, long long *stats, int s_total, int nr,
+                        int rt, int bs, int spc, int dim,
+                        cudaStream_t stream, long long *launched) {
+  if (s_total == 0) return cudaSuccess;
+  const int piece = flood::wide_piece(dim);
+  const size_t smem = (((size_t)piece + 3) * dim +
+                       2 * (size_t)nr * MAX_GROUP_WARPS) * sizeof(float);
+  cudaError_t e = cudaFuncSetAttribute(
+      flood_stats_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (e != cudaSuccess) return e;
+  flood_stats_wide<<<(unsigned)s_total, rt / SPT, smem, stream>>>(
+      samples_t, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, tile_hi,
+      ub2, blk_ptr, blk_chunks, sim_order, out, stats, nr, rt, bs, spc, dim,
+      piece);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return e;
+}
+
 }  // namespace
 
 extern "C" {
@@ -319,9 +505,13 @@ int flood_stats_sub() { return SUB; }
 
 // Launch K3 on `stream`: one CTA per simplex row, CTA i on simplex
 // sim_order[i] (a permutation of the rows). `rt` must be a multiple of 128
-// and at most 512; `dim` 1..8; `witnesses` 16-byte aligned; the simplex's
-// running mins and tile maxima, (nr * rt + 8 * nr) floats (and at DIM 8 the
-// raw fetch buffer, SUB * 8 floats), must fit the CTA's shared memory.
+// and at most 512; `dim` at least 1; `samples` (S, NR, RT, dim) for 1-8
+// coordinates and coordinate-major, (S, NR, dim, RT), for more; `witnesses`
+// 16-byte aligned. The CTA's shared memory must hold, for 1-8 coordinates,
+// the simplex's running mins and tile maxima, (nr * rt + 8 * nr) floats
+// (and at DIM 8 the raw fetch buffer, SUB * 8 floats), and for more the
+// staged piece, centre, sample box and tile maxima, (wide_piece(dim) + 3) *
+// dim + 8 * nr floats.
 // *launched is set to the number of kernel launches enqueued without error
 // (0 when there is no simplex). Returns 0 or the CUDA error.
 int flood_stats_launch(const float *samples, const float *witnesses,
@@ -352,7 +542,13 @@ int flood_stats_launch(const float *samples, const float *witnesses,
     case 6: e = FLOOD_STATS_LAUNCH(6); break;
     case 7: e = FLOOD_STATS_LAUNCH(7); break;
     case 8: e = FLOOD_STATS_LAUNCH(8); break;
-    default: e = cudaErrorInvalidValue;
+    default:
+      e = dim < 1 ? cudaErrorInvalidValue
+                  : launch_wide(samples, witnesses, sub_lo, sub_hi, centers,
+                                radii, tile_lo, tile_hi, ub2, blk_ptr,
+                                blk_chunks, sim_order, out, stats, s_total,
+                                nr, rt, bs, subs_per_chunk, dim, st,
+                                launched);
   }
 #undef FLOOD_STATS_LAUNCH
   return static_cast<int>(e);

@@ -28,10 +28,18 @@
 // (the landmark's coordinates, the barrier's counter, the candidates) and
 // block reductions, not work. The kernel is compiled per coordinate count,
 // so a fold issues no instruction for absent coordinates, and per scalar
-// type: float and double clouds of 1-8 coordinates (past 8 the wrapper
-// raises). The double instance keeps the same loop, tie rule and skips; it
-// caches its first chunk's points in shared memory only where they fit the
-// same byte budget (MAX_CACHED_BYTES), i.e. up to 2 coordinates.
+// type: float and double clouds of 1-8 coordinates. The double instance
+// keeps the same loop, tie rule and skips; it caches its first chunk's
+// points in shared memory only where they fit the same byte budget
+// (MAX_CACHED_BYTES), i.e. up to 2 coordinates.
+//
+// Past 8 coordinates, one runtime-width instance per scalar type
+// (fps_loop<T, WIDE>, `a.dim` coordinates): the same launch, loop, skip and
+// tie rule, with the landmark's coordinates in shared memory (one more
+// barrier a step) and every point read from device memory (an 8192-point
+// chunk of 64 coordinates is 2 MB: no cache). Its folds stream the chunk's
+// dim x 8192 coordinates, so past a few coordinates a visited chunk costs
+// bytes more than the step's round trips.
 
 // Arithmetic: every square and sum is an explicitly rounded multiply and
 // add (no FMA contraction), so the box bound is a true lower bound of the
@@ -44,7 +52,8 @@
 
 namespace {
 
-constexpr int MAX_DIM = 8;
+constexpr int MAX_DIM = 8;  // the widest fixed-width instance
+constexpr int WIDE = 0;     // DIM of the runtime-width instance
 constexpr int THREADS = 1024;
 // A barrier wait that sees no progress for this many polls (seconds)
 // traps instead of hanging the card.
@@ -170,30 +179,55 @@ struct FpsArgs {
   int n_samples;
   unsigned long long *visits;
   unsigned long long *bar;  // (1,) zero
+  int dim;                  // coordinates (read by the WIDE instance)
 };
 
 // Dynamic shared memory: the running min d^2 of the CTA's first chunk and,
 // where the points and mins take at most MAX_CACHED_BYTES a point, that
 // chunk's points (one CTA of THREADS fills an SM, so the SM's shared memory
 // is the CTA's to use): float up to 5 coordinates, double up to 2, 192 KB
-// a CTA at most.
+// a CTA at most. The WIDE instance keeps the landmark's `dim` coordinates
+// after the mins instead.
 constexpr int MAX_CACHED_BYTES = 24;
 
 template <typename T, int DIM>
 __host__ __device__ constexpr bool cached() {
-  return (DIM + 1) * sizeof(T) <= MAX_CACHED_BYTES;
+  return DIM != WIDE && (DIM + 1) * sizeof(T) <= MAX_CACHED_BYTES;
 }
 
 template <typename T, int DIM>
-size_t smem_bytes(int chunk) {
-  return (size_t)chunk * sizeof(T) * (cached<T, DIM>() ? DIM + 1 : 1);
+size_t smem_bytes(int chunk, int dim) {
+  return (size_t)chunk * sizeof(T) * (cached<T, DIM>() ? DIM + 1 : 1) +
+         (DIM == WIDE ? (size_t)dim * sizeof(T) : 0);
+}
+
+// The squared lower bound of the distances from landmark lm to chunk c's
+// box (the skip test), coordinate by coordinate.
+template <typename T, int DIM>
+__device__ __forceinline__ T box_lb2(const FpsArgs<T> &a, int c,
+                                     const T *lm) {
+  T lb2 = 0;
+  auto term = [&](int d) {
+    const T gd = max_of(
+        max_of(sub_rn(__ldg(a.box_lo + d * a.nchunks + c), lm[d]),
+               sub_rn(lm[d], __ldg(a.box_hi + d * a.nchunks + c))),
+        T(0));
+    lb2 = add_rn(lb2, mul_rn(gd, gd));
+  };
+  if constexpr (DIM == WIDE) {
+    for (int d = 0; d < a.dim; ++d) term(d);
+  } else {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d) term(d);
+  }
+  return lb2;
 }
 
 // Fold the landmark into one chunk: points p[d * stride + j], running
 // mins m[j], j < chunk; returns the chunk's (max, argmax) to thread 0.
 template <typename T, int DIM>
 __device__ __forceinline__ void fold(const T *p, int stride, T *m, int chunk,
-                                     int base, const T *lm, T &best,
+                                     int base, const T *lm, int dim, T &best,
                                      int &bidx, T *sv, int *si) {
   best = -pos_inf<T>();
   bidx = INT32_MAX;
@@ -201,10 +235,17 @@ __device__ __forceinline__ void fold(const T *p, int stride, T *m, int chunk,
   for (int j = threadIdx.x; j < chunk; j += THREADS) {
     const T d0 = sub_rn(p[j], lm[0]);
     T d2 = mul_rn(d0, d0);
+    if constexpr (DIM == WIDE) {
+      for (int d = 1; d < dim; ++d) {
+        const T diff = sub_rn(p[(size_t)d * stride + j], lm[d]);
+        d2 = add_rn(d2, mul_rn(diff, diff));
+      }
+    } else {
 #pragma unroll
-    for (int d = 1; d < DIM; ++d) {
-      const T diff = sub_rn(p[d * stride + j], lm[d]);
-      d2 = add_rn(d2, mul_rn(diff, diff));
+      for (int d = 1; d < DIM; ++d) {
+        const T diff = sub_rn(p[d * stride + j], lm[d]);
+        d2 = add_rn(d2, mul_rn(diff, diff));
+      }
     }
     const T mm = min_of(m[j], d2);
     m[j] = mm;
@@ -222,6 +263,7 @@ __global__ void __launch_bounds__(THREADS) fps_loop(const FpsArgs<T> a) {
   extern __shared__ __align__(16) unsigned char dyn_bytes[];
   T *mloc = reinterpret_cast<T *>(dyn_bytes);  // running min d^2 of chunk g
   T *ploc = mloc + a.chunk;  // its points, (DIM, chunk), if CACHED
+  T *lm_sh = mloc + a.chunk;  // the landmark, (dim,), if WIDE
   __shared__ T sv[32];
   __shared__ int si[32];
   __shared__ int s_next;
@@ -240,22 +282,23 @@ __global__ void __launch_bounds__(THREADS) fps_loop(const FpsArgs<T> a) {
   unsigned long long visits = 0;  // thread 0's count of chunk visits
   int cur = a.out[0];
   for (int step = 1; step < a.n_samples; ++step) {
-    T lm[DIM];
+    T lm_reg[DIM == WIDE ? 1 : DIM];
+    const T *lm = lm_reg;
+    if constexpr (DIM == WIDE) {
+      // lm_sh's readers of the last step are past its barriers
+      for (int d = tid; d < a.dim; d += THREADS)
+        lm_sh[d] = __ldg(a.pts + (size_t)d * a.npad + cur);
+      __syncthreads();
+      lm = lm_sh;
+    } else {
 #pragma unroll
-    for (int d = 0; d < DIM; ++d)
-      lm[d] = __ldg(a.pts + (size_t)d * a.npad + cur);
+      for (int d = 0; d < DIM; ++d)
+        lm_reg[d] = __ldg(a.pts + (size_t)d * a.npad + cur);
+    }
     const int par = step & 1;
 
     for (int c = g; c < a.nchunks; c += G) {
-      T lb2 = 0;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d) {
-        const T gd = max_of(
-            max_of(sub_rn(__ldg(a.box_lo + d * a.nchunks + c), lm[d]),
-                   sub_rn(lm[d], __ldg(a.box_hi + d * a.nchunks + c))),
-            T(0));
-        lb2 = add_rn(lb2, mul_rn(gd, gd));
-      }
+      const T lb2 = box_lb2<T, DIM>(a, c, lm);
       // this CTA alone writes cmax[c] / cbest[c] (thread 0, before a
       // barrier)
       T cm = __ldcg(a.cmax + c);
@@ -266,14 +309,14 @@ __global__ void __launch_bounds__(THREADS) fps_loop(const FpsArgs<T> a) {
         T best;
         int bidx;
         if (c == g && CACHED)
-          fold<T, DIM>(ploc, a.chunk, mloc, a.chunk, base, lm, best, bidx,
-                       sv, si);
+          fold<T, DIM>(ploc, a.chunk, mloc, a.chunk, base, lm, a.dim, best,
+                       bidx, sv, si);
         else if (c == g)
-          fold<T, DIM>(own, a.npad, mloc, a.chunk, base, lm, best, bidx, sv,
-                       si);
+          fold<T, DIM>(own, a.npad, mloc, a.chunk, base, lm, a.dim, best,
+                       bidx, sv, si);
         else
           fold<T, DIM>(a.pts + base, a.npad, a.mind2 + base, a.chunk, base,
-                       lm, best, bidx, sv, si);
+                       lm, a.dim, best, bidx, sv, si);
         if (tid == 0) {
           cm = best;
           cb = bidx;
@@ -309,9 +352,10 @@ __global__ void __launch_bounds__(THREADS) fps_loop(const FpsArgs<T> a) {
   if (tid == 0 && visits) atomicAdd(a.visits, visits);  // instrumentation
 }
 
-// SMs x resident CTAs per SM for fps_loop<T, DIM> (occupancy query).
+// SMs x resident CTAs per SM for fps_loop<T, DIM> at `dim` coordinates
+// (occupancy query, with the shared memory of that width).
 template <typename T, int DIM>
-cudaError_t coresident(int chunk, int *ctas) {
+cudaError_t coresident(int chunk, int dim, int *ctas) {
   int dev, sms, per_sm, coop;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
@@ -322,10 +366,10 @@ cudaError_t coresident(int chunk, int *ctas) {
   if (e == cudaSuccess)
     e = cudaFuncSetAttribute(fps_loop<T, DIM>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem_bytes<T, DIM>(chunk));
+                             (int)smem_bytes<T, DIM>(chunk, dim));
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, fps_loop<T, DIM>, THREADS, smem_bytes<T, DIM>(chunk));
+        &per_sm, fps_loop<T, DIM>, THREADS, smem_bytes<T, DIM>(chunk, dim));
   if (e == cudaSuccess) *ctas = sms * per_sm;
   return e;
 }
@@ -333,29 +377,33 @@ cudaError_t coresident(int chunk, int *ctas) {
 template <typename T, int DIM>
 cudaError_t run(FpsArgs<T> a, cudaStream_t stream, long long *launched) {
   int ctas = 0;
-  cudaError_t e = coresident<T, DIM>(a.chunk, &ctas);
+  cudaError_t e = coresident<T, DIM>(a.chunk, a.dim, &ctas);
   if (e != cudaSuccess) return e;
   if (ctas < 1) return cudaErrorCooperativeLaunchTooLarge;
   const int G = a.nchunks < ctas ? a.nchunks : ctas;
   void *args[] = {&a};
   e = cudaLaunchCooperativeKernel(reinterpret_cast<void *>(fps_loop<T, DIM>),
                                   dim3(G), dim3(THREADS), args,
-                                  smem_bytes<T, DIM>(a.chunk), stream);
+                                  smem_bytes<T, DIM>(a.chunk, a.dim),
+                                  stream);
   if (e == cudaSuccess) e = cudaGetLastError();
   if (e == cudaSuccess) ++*launched;
   return e;
 }
 
+// The instance for `dim` coordinates: fixed-width up to MAX_DIM, WIDE past.
 template <typename T>
 struct ByDim {
-  using CoresidentFn = cudaError_t (*)(int, int *);
+  using CoresidentFn = cudaError_t (*)(int, int, int *);
   using RunFn = cudaError_t (*)(FpsArgs<T>, cudaStream_t, long long *);
-  static constexpr CoresidentFn CORESIDENT[MAX_DIM] = {
-      coresident<T, 1>, coresident<T, 2>, coresident<T, 3>, coresident<T, 4>,
-      coresident<T, 5>, coresident<T, 6>, coresident<T, 7>, coresident<T, 8>};
-  static constexpr RunFn RUN[MAX_DIM] = {run<T, 1>, run<T, 2>, run<T, 3>,
-                                         run<T, 4>, run<T, 5>, run<T, 6>,
-                                         run<T, 7>, run<T, 8>};
+  static constexpr CoresidentFn CORESIDENT[MAX_DIM + 1] = {
+      coresident<T, WIDE>, coresident<T, 1>, coresident<T, 2>,
+      coresident<T, 3>,    coresident<T, 4>, coresident<T, 5>,
+      coresident<T, 6>,    coresident<T, 7>, coresident<T, 8>};
+  static constexpr RunFn RUN[MAX_DIM + 1] = {
+      run<T, WIDE>, run<T, 1>, run<T, 2>, run<T, 3>, run<T, 4>,
+      run<T, 5>,    run<T, 6>, run<T, 7>, run<T, 8>};
+  static int index(int dim) { return dim > MAX_DIM ? 0 : dim; }
 };
 
 template <typename T>
@@ -379,8 +427,9 @@ cudaError_t run_typed(const void *pts, int dim, int npad, int chunk,
                      out,
                      n_samples,
                      visits,
-                     bar};
-  return ByDim<T>::RUN[dim - 1](a, stream, launched);
+                     bar,
+                     dim};
+  return ByDim<T>::RUN[ByDim<T>::index(dim)](a, stream, launched);
 }
 
 }  // namespace
@@ -392,19 +441,23 @@ const char *flooder_cuda_error_string(int code) {
 }
 
 // The number of K2 CTAs the current device holds at once for `dim`
-// coordinates of a float (`is_double` 0) or double (1) cloud and chunks of
-// `chunk` points: SMs x resident blocks per SM (occupancy query). Returns 0
-// or the CUDA error.
+// coordinates (at least 1) of a float (`is_double` 0) or double (1) cloud
+// and chunks of `chunk` points: SMs x resident blocks per SM (occupancy
+// query, with that width's shared memory). Returns 0 or the CUDA error.
 int fps_coresident_ctas(int dim, int is_double, int chunk, int *ctas) {
   *ctas = 0;
-  if (dim < 1 || dim > MAX_DIM) return static_cast<int>(cudaErrorInvalidValue);
+  if (dim < 1) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(
-      is_double ? ByDim<double>::CORESIDENT[dim - 1](chunk, ctas)
-                : ByDim<float>::CORESIDENT[dim - 1](chunk, ctas));
+      is_double
+          ? ByDim<double>::CORESIDENT[ByDim<double>::index(dim)](chunk, dim,
+                                                                 ctas)
+          : ByDim<float>::CORESIDENT[ByDim<float>::index(dim)](chunk, dim,
+                                                               ctas));
 }
 
 // Run steps 1..n_samples-1 of the greedy loop on `stream` as one
-// cooperative launch of min(nchunks, co-resident CTAs) CTAs. The point,
+// cooperative launch of min(nchunks, co-resident CTAs) CTAs, for `dim`
+// coordinates (at least 1; past MAX_DIM the WIDE instance). The point,
 // box, running-min and exchange-max buffers are float (`is_double` 0) or
 // double (1). The caller has set mind2 = cmax = +inf, out[0] = the sorted
 // start index, *visits = 0 and *bar = 0. *launched is set to the number of
@@ -417,7 +470,7 @@ int fps_run(const void *pts, int dim, int is_double, int npad, int chunk,
             int n_samples, unsigned long long *visits,
             unsigned long long *bar, void *stream, long long *launched) {
   *launched = 0;
-  if (dim < 1 || dim > MAX_DIM || nchunks < 1)
+  if (dim < 1 || nchunks < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (n_samples < 2) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);

@@ -137,7 +137,8 @@ def build_cuda(names: Iterable[str]) -> None:
         raise RuntimeError("\n".join(errors))
 
 
-KERNEL_NAMES = ("flood_min_kernel", "flood_stats_kernel", "fps_loop")
+KERNEL_NAMES = ("flood_min_kernel", "flood_stats_kernel", "fps_loop",
+                "flood_min_wide", "flood_stats_wide")
 
 
 _TYPE_ARGS = {"f": "float", "d": "double"}
@@ -145,11 +146,14 @@ _TYPE_ARGS = {"f": "float", "d": "double"}
 
 def kernel_instance(mangled: str) -> str:
     """A kernel's readable name with its template arguments, from its
-    mangled name, e.g. ``fps_loop<double,3>``; unknown names unchanged."""
+    mangled name, e.g. ``fps_loop<double,3>``; K2's runtime-width instance
+    (width argument 0) reads ``fps_loop<float,wide>``, and the flood
+    kernels' runtime-width instances are ``flood_min_wide`` and
+    ``flood_stats_wide``. Unknown names stay unchanged."""
     known = [k for k in KERNEL_NAMES if k in mangled]
     if not known:
         return mangled
-    args = [_TYPE_ARGS.get(t) or n for n, t in
+    args = [_TYPE_ARGS.get(t) or ("wide" if n == "0" else n) for n, t in
             re.findall(r"Li(\d+)E|(?<=I)([fd])(?=Li)", mangled)]
     return known[0] + (f"<{','.join(args)}>" if args else "")
 

@@ -22,11 +22,18 @@ TPU's scalar memory, the aliased accumulator, power-of-two compile-key
 bucketing and transposed witness storage. ``active`` is a bool and
 ``dist`` a float, so no pair is ever dropped by a packing.
 
-The kernel takes float32 clouds of 1-8 coordinates (K2's range). Divergence
-from ``flooder_tpu``, whose Pallas engine caps no dimension: past 8
-coordinates the operand check raises ``NotImplementedError`` for a CUDA
-tensor; CPU tensors run the plain version at any width, and float64 and
-``use_pallas=False`` take the dense engine (``ops/flood.py``).
+The kernel takes float32 clouds of any width, as the Pallas engine does:
+template instances for 1-8 coordinates and one runtime-width instance past
+8, which reads the samples coordinate-major (``kernel_samples``) and is
+capped only by a CTA's shared memory (5,282 coordinates). CPU tensors run
+the plain version, and float64 and ``use_pallas=False`` take the dense
+engine (``ops/flood.py``).
+
+Curve codes are int64. Past ``63 // bits`` coordinates a code's bit shift
+would pass its sign bit, so the codes take the first ``63 // bits``
+coordinates only (``_coded_axes``); up to 63 coordinates that is every
+coordinate, the same codes as ``flooder_tpu``. An order decides which
+simplices share a block, never a filtration value.
 """
 
 from __future__ import annotations
@@ -50,6 +57,7 @@ MASK = 3e18  # out-of-ball witnesses move here
 # Squared distances at or above this mean "no witness in the ball"
 # (a sub-chunk with every witness masked yields >= 9e36).
 _MASKED_D2 = 1e30
+# The widest template instance of K1 and K3; past it the runtime-width one.
 KERNEL_MAX_DIM = 8
 
 # Kernel launches through ``flood_min`` (CUDA tensors only), as counted
@@ -66,11 +74,20 @@ def _round_up(x: int, m: int) -> int:
 # ---------------------------------------------------------------------------
 
 
+def _coded_axes(dim: int, bits: int) -> int:
+    """How many leading coordinates an int64 curve code of ``bits`` bits per
+    axis holds: all ``dim`` up to ``63 // bits``, so that no shift passes
+    the sign bit (a shift of 64 or more is not defined alike on the CPU and
+    the card)."""
+    return min(dim, 63 // bits)
+
+
 def _hilbert_from_quantized(q_cols, bits: int, where):
     """Hilbert index from quantized integer coordinates (Skilling's
     transpose algorithm, vectorized; ``where`` is ``np.where`` or
-    ``torch.where`` so host and device callers share the code)."""
-    X = [c for c in q_cols]
+    ``torch.where`` so host and device callers share the code). Codes the
+    first ``_coded_axes`` columns."""
+    X = list(q_cols)[: _coded_axes(len(q_cols), bits)]
     d = len(X)
     Q = 1 << (bits - 1)
     while Q > 1:
@@ -115,7 +132,8 @@ def hilbert_codes(points: torch.Tensor, bits: int) -> torch.Tensor:
 def morton_codes(points: torch.Tensor, bits: int) -> torch.Tensor:
     """Morton (Z-order) codes of points, ``bits`` bits per axis (torch)."""
     q = _quantize(points, bits)
-    n, d = points.shape
+    n = points.shape[0]
+    d = _coded_axes(points.shape[1], bits)
     code = torch.zeros(n, dtype=torch.int64, device=points.device)
     for b in range(bits):
         for ax in range(d):
@@ -401,7 +419,7 @@ def flood_pairs_reference(samples, witnesses, sub_lo, sub_hi, centers,
 
 def _check_flood_operands(operands, what: str):
     """The checks K1's and K3's wrappers share: one CUDA device, contiguous
-    float32 operands with an int32 work-list, 1..KERNEL_MAX_DIM coordinates,
+    float32 operands with an int32 work-list, at least one coordinate,
     whole blocks of BS simplices, whole witness chunks, witnesses 16-byte
     aligned. Raises on what the kernels do not take; returns (s_total, nr,
     rt, dim, n_blk)."""
@@ -418,11 +436,8 @@ def _check_flood_operands(operands, what: str):
         raise TypeError(f"{what} takes float32 operands")
     if any(t.dtype != torch.int32 for t in ints):
         raise TypeError(f"{what} takes an int32 work-list")
-    if not 1 <= dim <= KERNEL_MAX_DIM:
-        raise NotImplementedError(
-            f"the CUDA flood kernels take 1..{KERNEL_MAX_DIM} coordinates, "
-            f"got {dim}"
-        )
+    if dim < 1:
+        raise ValueError(f"{what} takes at least one coordinate, got {dim}")
     if s_total % BS or operands[9].numel() != n_blk + 1:
         raise ValueError("simplex rows must fill whole blocks of BS")
     if witnesses.shape[0] % WCHUNK or witnesses.shape[1] != dim:
@@ -430,6 +445,15 @@ def _check_flood_operands(operands, what: str):
     if witnesses.data_ptr() % 16:
         raise ValueError(f"{what}: witnesses must be 16-byte aligned")
     return s_total, nr, rt, dim, n_blk
+
+
+def kernel_samples(samples: torch.Tensor) -> torch.Tensor:
+    """The samples as K1 and K3 read them: (S, nr, rt, dim) for the template
+    instances, a coordinate-major copy (S, nr, dim, rt) past
+    KERNEL_MAX_DIM coordinates (the runtime-width instance)."""
+    if samples.shape[-1] <= KERNEL_MAX_DIM:
+        return samples
+    return samples.transpose(2, 3).contiguous()
 
 
 def _cta_order(blk_ptr: torch.Tensor) -> torch.Tensor:
@@ -481,10 +505,11 @@ def flood_min(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
     stats = torch.empty((n_blk * nr, 2), dtype=torch.int64,
                         device=samples.device)
     launched = ctypes.c_longlong(0)
+    kernel_ops = (kernel_samples(samples),) + operands[1:]
     with torch.cuda.device(samples.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flood_min_launch(
-            *(t.data_ptr() for t in operands), cta_order.data_ptr(),
+            *(t.data_ptr() for t in kernel_ops), cta_order.data_ptr(),
             out.data_ptr(), stats.data_ptr(), n_blk, nr, rt, dim, BS,
             WCHUNK // SUB, stream, ctypes.byref(launched),
         )

@@ -16,8 +16,9 @@ when its gap is within ``min(tile's current max, ub2)``: K1's own tile
 test, so K3 computes the same tiles as K1, its values equal K1's bit for
 bit and its column 2 sums to K1's admitted units.
 
-It takes exactly the operand tuple of ``CudaFloodEngine.prepare``. CPU
-tensors run ``flood_stats_reference``; CUDA tensors launch
+It takes exactly the operand tuple of ``CudaFloodEngine.prepare``, at any
+width (template instances for 1-8 coordinates, K1's runtime-width forms
+past 8). CPU tensors run ``flood_stats_reference``; CUDA tensors launch
 ``csrc/flood_stats.cu`` or raise.
 
 The kernel is one CTA per simplex, built as K1 is: each admitted sub-chunk
@@ -56,6 +57,7 @@ from .cuda_flood import (
     _check_flood_operands,
     _cta_order,
     _sqsum,
+    kernel_samples,
 )
 
 # Kernel launches through ``flood_min_stats`` (CUDA tensors only), as
@@ -177,10 +179,11 @@ def flood_min_stats(samples, witnesses, sub_lo, sub_hi, centers, radii,
     stats = torch.empty((s_total, 3), dtype=torch.int64,
                         device=samples.device)
     launched = ctypes.c_longlong(0)
+    kernel_ops = (kernel_samples(samples),) + operands[1:]
     with torch.cuda.device(samples.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = lib.flood_stats_launch(
-            *(t.data_ptr() for t in operands), order.data_ptr(),
+            *(t.data_ptr() for t in kernel_ops), order.data_ptr(),
             out.data_ptr(), stats.data_ptr(), s_total, nr, rt, dim, BS,
             WCHUNK // SUB, stream, ctypes.byref(launched),
         )

@@ -3,14 +3,19 @@
 Counterpart of ``flooder_tpu.ops.pallas_fps``. ``_fps_prepare`` lays the
 cloud out as the TPU kernel's did (Hilbert sort, 8192-point chunks with
 bounding boxes), as torch ops; ``csrc/fps.cu`` runs the whole greedy loop
-as one cooperative launch with the same chunk skip and tie rule, built for
-float32 and float64 clouds of 1-8 coordinates. The wrapper launches the
-kernel for a CUDA tensor and uses the plain version ``ops/fps.py`` for a
-CPU tensor, and nothing else.
+as one cooperative launch with the same chunk skip and tie rule, for
+float32 and float64 clouds of any width (fixed-width instances for 1-8
+coordinates, a runtime-width one past 8, where ``flooder_tpu`` runs its XLA
+loop). The wrapper launches the kernel for a CUDA tensor and uses the plain
+version ``ops/fps.py`` for a CPU tensor, and nothing else; a CUDA cloud of
+another dtype raises.
 
-Divergence from ``flooder_tpu``: past 8 coordinates (or for another dtype)
-a CUDA cloud raises, where the reference runs its XLA greedy loop; a CPU
-cloud takes the plain version at any width.
+The Hilbert sort codes the first ``63 // bits`` coordinates
+(``cuda_flood._coded_axes``): every coordinate up to 63 (the TPU layout's
+codes, which ``flooder_tpu`` builds up to 8), and a code that stays inside
+int64, alike on the CPU and the card, past that. The sort only groups
+points into chunks: it changes which chunks a step skips, and the pick among
+exactly tied points, never a step's farthest distance.
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ from .cuda_flood import hilbert_codes, morton_codes
 from .fps import farthest_point_sampling
 
 FPS_CHUNK = 8192
-KERNEL_MAX_DIM = 8
 KERNEL_DTYPES = (torch.float32, torch.float64)
 
 # CUDA launches of the greedy-loop kernel, as counted by ``fps_run`` while
@@ -155,7 +159,7 @@ def cuda_farthest_point_sampling(
     """K2: exact greedy FPS. Returns (n_samples,) int64 indices.
 
     A CPU tensor goes to the plain version; a CUDA tensor launches
-    ``csrc/fps.cu`` or raises (float32 or float64, at most 8 coordinates).
+    ``csrc/fps.cu`` or raises (float32 or float64, at least 1 coordinate).
     """
     if points.device.type == "cpu":
         return farthest_point_sampling(points, n_samples, start_idx)
@@ -163,10 +167,8 @@ def cuda_farthest_point_sampling(
         raise TypeError(f"the CUDA FPS kernel takes float32 or float64, "
                         f"got {points.dtype}")
     n, dim = points.shape
-    if not 1 <= dim <= KERNEL_MAX_DIM:
-        raise NotImplementedError(
-            f"the CUDA FPS kernel takes 1..{KERNEL_MAX_DIM} coordinates"
-        )
+    if dim < 1:
+        raise ValueError("the CUDA FPS kernel takes at least 1 coordinate")
     if not 0 <= start_idx < n or not 1 <= n_samples <= n:
         raise IndexError(f"start {start_idx} / samples {n_samples} vs {n}")
     if n >= 2**31:

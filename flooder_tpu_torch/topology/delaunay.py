@@ -9,7 +9,6 @@ the device owns dense geometry).
 
 from __future__ import annotations
 
-import itertools
 from typing import List, Optional
 
 import numpy as np
@@ -43,29 +42,33 @@ def delaunay_cells(points: np.ndarray) -> np.ndarray:
 def faces_by_dim(cells: np.ndarray, max_dimension: Optional[int] = None) -> List[np.ndarray]:
     """All unique faces of a cell array, grouped by dimension.
 
+    Each level is the unique facets of the level above, from the cells
+    down: a d-face of a cell lies in one of its (d+1)-faces, and the
+    unique (d+1)-faces are far fewer than a cell's (d+2)-subsets summed
+    over cells (at 10-D, 12M subsets of 5,918 cells against 4M facets).
+
     Args:
         cells: (n_cells, k) vertex-index array.
-        max_dimension: highest face dimension to enumerate (default: k-1).
+        max_dimension: highest face dimension to return (default: k-1).
+            Every level from the cells down is built all the same (each
+            comes from the one above); this only trims the returned list.
 
     Returns:
         list ``out`` with ``out[d]`` an (n_d, d+1) int32 array of per-row
         sorted, lex-sorted unique faces.
     """
-    cells = np.asarray(cells, dtype=np.int32)
-    k = cells.shape[1]
-    top = k - 1
+    level = np.sort(np.asarray(cells, dtype=np.int32), axis=1)
+    top = level.shape[1] - 1
     if max_dimension is None:
         max_dimension = top
-    out: List[np.ndarray] = []
-    for d in range(min(max_dimension, top) + 1):
-        rows = []
-        for comb in itertools.combinations(range(k), d + 1):
-            rows.append(cells[:, comb])
-        stacked = np.sort(np.concatenate(rows, axis=0), axis=1)
-        keys = row_keys(stacked)
-        _, first = np.unique(keys, return_index=True)
-        out.append(np.ascontiguousarray(stacked[first]))
-    return out
+    out: List[np.ndarray] = [level] * (top + 1)
+    for d in range(top, -1, -1):
+        if d < top:  # rows stay sorted when a column is dropped
+            level = np.concatenate(
+                [np.delete(out[d + 1], j, axis=1) for j in range(d + 2)])
+        _, first = np.unique(row_keys(level), return_index=True)
+        out[d] = np.ascontiguousarray(level[first])
+    return out[: min(max_dimension, top) + 1]
 
 
 class DelaunayComplex:

@@ -93,9 +93,26 @@ def test_fps_kernel_rejects_other_dtypes(cuda_device):
     pts = torch.rand(1000, 3, device=cuda_device)
     with pytest.raises(TypeError):
         cuda_fps.cuda_farthest_point_sampling(pts.half(), 10, 0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):
         cuda_fps.cuda_farthest_point_sampling(
-            torch.rand(1000, 9, device=cuda_device), 10, 0)
+            torch.rand(1000, 0, device=cuda_device), 10, 0)
+
+
+@pytest.mark.parametrize(
+    "dim,dtype", [(16, torch.float32), (64, torch.float32),
+                  (16, torch.float64)])
+def test_fps_kernel_past_8_coordinates_matches_plain(cuda_device, dim,
+                                                     dtype):
+    """K2's runtime-width instance: the same greedy selection as the plain
+    version, in one launch, on 3 chunks."""
+    x = np.random.default_rng(dim).random((20000, dim))
+    pts = torch.from_numpy(x).to(cuda_device, dtype)
+    before = cuda_fps.LAUNCHES
+    got = cuda_fps.cuda_farthest_point_sampling(pts, 64, 9)
+    assert cuda_fps.LAUNCHES == before + 1
+    want = farthest_point_sampling(pts, 64, 9)
+    assert_same_greedy_selection(pts.cpu().numpy(), got.cpu().numpy(),
+                                 want.cpu().numpy(), 9)
 
 
 def test_fps_single_sample_launches_nothing(cuda_device):
@@ -188,7 +205,8 @@ def k3_case_operands(device, dim, r_count, empty_block=False, seed=7,
                      radius_max=1.3):
     """Seeded K3 operands from ``CudaFloodEngine.prepare``: 16,384 witnesses
     in [0, 5]^dim, 4 blocks of random simplices with the nearest-vertex
-    bound on and radii in [0.1, radius_max). Every fourth ball has radius
+    bound on and radii in [0.1, radius_max) (past 8 coordinates the
+    distance of the 2nd to 299th nearest witness). Every fourth ball has radius
     1e-5, so it meets the sub-chunk boxes around its centre but holds no
     witness; ``empty_block`` gives the last block radius 0, so its
     work-list is empty."""
@@ -198,6 +216,11 @@ def k3_case_operands(device, dim, r_count, empty_block=False, seed=7,
     S, k = cuda_flood.BS * 4, dim + 1
     centers = (rng.random((S, dim)) * 5).astype(np.float32)
     radii = (rng.random(S) * (radius_max - 0.1) + 0.1).astype(np.float32)
+    if dim > cuda_flood.KERNEL_MAX_DIM:
+        # such balls hold no witness: the radius of the 2nd to 299th
+        # nearest witness instead
+        d = np.sort(np.linalg.norm(X[None] - centers[:, None], axis=-1), 1)
+        radii = d[np.arange(S), rng.integers(2, 300, S)].astype(np.float32)
     radii[::4] = 1e-5
     if empty_block:
         radii[-cuda_flood.BS:] = 0.0
@@ -277,6 +300,60 @@ def test_flood_kernels_match_plain_at_5_to_8_coordinates(cuda_device, dim):
     units, inball = cuda_flood.kernel_operations(stats_k)
     assert 0 < inball < units * cuda_flood.SUB * ops[0].shape[2]
     assert_k3_matches_plain(ops)
+
+
+@pytest.mark.parametrize("dim", [9, 16, 40, 64])
+def test_flood_kernels_past_8_coordinates_equal_plain(cuda_device, dim):
+    """K1's and K3's runtime-width instances against their plain versions:
+    bit for bit (no FMA there), inf in the same places (a masked d2
+    overflows to +inf from 38 coordinates on), every count equal, K3 ==
+    K1, in one launch each."""
+    ops = k3_case_operands(cuda_device, dim=dim, r_count=1100)
+    assert ops[0].shape[1] == 3
+    before = cuda_flood.LAUNCHES
+    out_k, stats_k = cuda_flood.flood_min(*ops)
+    torch.cuda.synchronize()
+    assert cuda_flood.LAUNCHES == before + 1
+    out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
+    assert torch.equal(out_k, out_p)
+    assert torch.equal(stats_k, stats_p)
+    masked = out_p >= cuda_flood._MASKED_D2
+    assert masked.any() and not masked.all()
+    # a unit with no in-ball witness folds in a finite masked d2 below 38
+    # coordinates, +inf from 38 on
+    assert bool((masked & torch.isfinite(out_p)).any()) == (dim < 38)
+    units, inball = cuda_flood.kernel_operations(stats_k)
+    assert 0 < inball < units * cuda_flood.SUB * ops[0].shape[2]
+    before = cuda_flood_stats.LAUNCHES
+    out_3, stats_3 = cuda_flood_stats.flood_min_stats(*ops)
+    torch.cuda.synchronize()
+    assert cuda_flood_stats.LAUNCHES == before + 1
+    out_3p, stats_3p = cuda_flood_stats.flood_stats_reference(*ops)
+    assert torch.equal(out_3, out_3p) and torch.equal(out_3, out_k)
+    assert torch.equal(stats_3, stats_3p)
+    assert stats_3[:, cuda_flood_stats.COL_TILES].sum().item() == units
+
+
+def test_12d_cloud_through_k2_and_k1(cuda_device):
+    """generate_landmarks and flood_complex on a small 12-D cloud through
+    K2 and K1 on the card, against the CPU run."""
+    pts = np.random.default_rng(12).random((3000, 12)).astype(np.float32)
+    X = torch.from_numpy(pts).to(cuda_device)
+    f0 = cuda_fps.LAUNCHES
+    L = ft.generate_landmarks(X, 15, start_idx=0)
+    assert cuda_fps.LAUNCHES == f0 + 1
+    L_cpu = ft.generate_landmarks(pts, 15, start_idx=0, device="cpu")
+    assert torch.equal(L.cpu(), L_cpu)  # no ties in a uniform cloud
+    out = {}
+    for dev in ("cpu", "cuda"):
+        k0 = cuda_flood.LAUNCHES
+        out[dev] = _complex(dev, pts, L_cpu, points_per_edge=4,
+                            max_dimension=3)
+        if dev == "cuda":
+            assert cuda_flood.LAUNCHES == k0 + 1
+    _assert_same(out["cpu"], out["cuda"], 1e-6)
+    assert np.isfinite([v for s, v in out["cuda"].items() if len(s) == 4]
+                       ).all()
 
 
 # the last case is the K1 case above whose balls cut sub-chunks

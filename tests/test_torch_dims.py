@@ -1,16 +1,27 @@
 """Clouds of more than 4 coordinates through the port against flooder_tpu:
 the reference's 5-D grid-mode and 6-D random-mode edge cases
-(tests/test_edge_cases.py:190-226) on the kernel route (whose CUDA kernels
-are built for 1-8 coordinates), the 5-D one also on the dense engine, and
-a 17-D cloud,
-past the native reduction's 16 coordinates, on the dense engine's torch
-ops. Parity bar: the same simplices, values within 1e-5."""
+(tests/test_edge_cases.py:190-226) on the kernel route (template instances
+of the CUDA kernels for 1-8 coordinates), the 5-D one also on the dense
+engine, and a 17-D cloud, past the native reduction's 16 coordinates, on
+the dense engine's torch ops. Parity bar: the same simplices, values within
+1e-5.
 
+Past 8 coordinates (the kernels' runtime-width instances, whose plain
+versions run here): 9-D and 12-D clouds in grid and random mode, a 9-D 2x2
+mesh against one device, and K1's and K3's plain versions against the
+Pallas kernels in interpret mode on one block at 9 coordinates and, for
+K1, at 40, where a masked d2 overflows to +inf."""
+
+import jax.numpy as jnp
 import numpy as np
+import pytest
+import torch
 
 import flooder_tpu as fj
 import flooder_tpu_torch as ft
+from flooder_tpu.ops import pallas_flood as pf
 from flooder_tpu_torch import core as core_t
+from flooder_tpu_torch.ops import cuda_flood as cf
 
 
 def _assert_same_complex(ref: dict, got: dict, tol: float = 1e-5):
@@ -61,3 +72,124 @@ def test_6d_cloud_random_mode_matches_flooder_tpu():
     assert {len(s) for s in ref} == set(range(1, 8))
     np.random.seed(3)
     _assert_same_complex(ref, ft.flood_complex(pts, 16, device="cpu", **kw))
+
+
+# ---------------------------------------------------------------------------
+# past 8 coordinates: the kernels' runtime-width instances, through their
+# plain versions here
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("mode", ["grid", "random"])
+@pytest.mark.parametrize("dim,n_lms", [(9, 12), (12, 14)])
+def test_flood_complex_past_8_coordinates_matches_flooder_tpu(dim, n_lms,
+                                                              mode):
+    """A 9-D and a 12-D cloud through the kernel route (K2's and K1's plain
+    versions) against flooder_tpu, in grid and random mode."""
+    pts = np.random.default_rng(dim).random((800, dim)).astype(np.float32)
+    kw = dict(points_per_edge=4) if mode == "grid" else dict(
+        num_rand=16, points_per_edge=None)
+    np.random.seed(3)
+    ref = fj.flood_complex(pts, n_lms, start_idx=0, max_dimension=3, **kw)
+    assert any(len(s) == 4 and np.isfinite(v) for s, v in ref.items())
+    np.random.seed(3)
+    got = ft.flood_complex(pts, n_lms, start_idx=0, max_dimension=3,
+                           device="cpu", **kw)
+    _assert_same_complex(ref, got)
+
+
+def test_mesh_past_8_coordinates_equals_one_device():
+    """A 2x2 CPU mesh of the kernel engine (K1's plain version on every
+    (simplex, witness) shard) on a 9-D cloud of 4 witness chunks equals the
+    single-device run exactly."""
+    from flooder_tpu_torch.parallel import make_mesh
+
+    X = np.random.default_rng(19).random((4500, 9)).astype(np.float32)
+    L = ft.generate_landmarks(X, 12, start_idx=0, device="cpu")
+    want = ft.flood_complex(X, L, points_per_edge=4, max_dimension=3,
+                            device="cpu")
+    mesh = make_mesh(["cpu"] * 4, simplex_parallel=2)
+    assert mesh.shape == {"simplex": 2, "witness": 2}
+    got = ft.flood_complex(X, L, points_per_edge=4, max_dimension=3,
+                           mesh=mesh)
+    assert got.keys() == want.keys()
+    assert all(got[s] == v for s, v in want.items())
+
+
+def _wide_block(dim, seed=23, n=4096, r_count=40, k=4):
+    """One block of BS tetrahedra in [0, 1]^dim around witness points, with
+    radii at the distance of the 2nd to 300th nearest witness, and every
+    fourth radius 1e-5 (the ball meets sub-chunk boxes but holds no
+    witness). Returns (X, vertices, weights, centers, radii)."""
+    rng = np.random.default_rng(seed + dim)
+    X = rng.random((n, dim)).astype(np.float32)
+    S = cf.BS
+    centers = (X[rng.choice(n, S, replace=False)]
+               + (rng.random((S, dim)) - 0.5) * 0.02).astype(np.float32)
+    d = np.sort(np.linalg.norm(X[None] - centers[:, None], axis=-1), axis=1)
+    radii = d[np.arange(S), rng.integers(2, 300, S)].astype(np.float32)
+    radii[::4] = 1e-5
+    verts = (centers[:, None, :]
+             + (rng.random((S, k, dim)) - 0.5) * 0.1).astype(np.float32)
+    w = rng.random((r_count, k)).astype(np.float32)
+    w /= w.sum(axis=1, keepdims=True)
+    return X, verts, w, centers, radii
+
+
+@pytest.mark.parametrize("dim", [9, 40])
+def test_plain_k1_matches_pallas_k1_past_8_coordinates(dim):
+    """flood_pairs_reference (through the engine, on CPU tensors) against
+    flooder_tpu's Pallas K1 in interpret mode on one block: values within
+    1e-5, inf in the same places. A unit with no in-ball witness gives a
+    masked d2 that is finite at 9 coordinates and overflows to +inf at 40
+    (from 38 on), and both map to inf."""
+    X, verts, w, centers, radii = _wide_block(dim)
+    eng_j = pf.PallasFloodEngine(jnp.asarray(X), pf.WCHUNK, interpret=True)
+    want = np.asarray(eng_j.min_distances(
+        jnp.asarray(verts), jnp.asarray(w), jnp.asarray(centers),
+        jnp.asarray(radii), None, tight=False))
+    eng_t = cf.CudaFloodEngine(torch.from_numpy(X))
+    t = torch.from_numpy
+    got = eng_t.min_distances(t(verts), w, t(centers), t(radii),
+                              tight=False).numpy()
+    inf = np.isinf(want)
+    np.testing.assert_array_equal(np.isinf(got), inf)
+    assert inf[::4].all() and (~inf).any()
+    np.testing.assert_allclose(got[~inf], want[~inf], atol=1e-5)
+
+    out, _ = cf.flood_pairs_reference(
+        *eng_t.prepare(t(verts), w, t(centers), t(radii), False)[0])
+    folded = out[::4] >= cf._MASKED_D2
+    assert folded.all()
+    if dim < 38:
+        assert torch.isfinite(out[::4]).all()
+    else:
+        assert torch.isinf(out[::4]).all()
+
+
+def test_plain_k3_matches_pallas_k3_past_8_coordinates():
+    """flood_stats_reference against the TPU tool's K3 in interpret mode at
+    9 coordinates on one block: d2 within 1e-6, no-witness entries in the
+    same places, every per-simplex counter equal."""
+    from test_torch_kernel_stats import _jax_k3
+
+    from flooder_tpu_torch.ops import cuda_flood_stats as cfs
+    from tools import kernel_stats as ks_j
+
+    X, verts, w, centers, radii = _wide_block(9)
+    eng = cf.CudaFloodEngine(torch.from_numpy(X))
+    rt, nr, r2_total = cf._tile_geometry(len(w))
+    ws, _ = cf._prepare_sample_weights(w, r2_total)
+    vl = (verts - centers[:, None, :]).astype(np.float32)
+    tpu_ops, ps, pc, out_j, st_j = _jax_k3(eng, ws, vl, centers, radii, nr,
+                                           rt, tight=False)
+    ops = cfs.operands_from_jax(ps, pc, *tpu_ops, device="cpu")
+    out_t, st_t = (a.numpy() for a in cfs.flood_stats_reference(*ops))
+    masked = out_j >= 1e30
+    np.testing.assert_array_equal(out_t >= 1e30, masked)
+    assert masked.any() and (~masked).any()
+    assert np.abs(out_t[~masked] - out_j[~masked]).max() <= 1e-6
+    for col_t, col_j in ((cfs.COL_SUBCHUNKS, ks_j.COL_SUBCHUNKS),
+                         (cfs.COL_TILES, ks_j.COL_TILES)):
+        np.testing.assert_array_equal(st_t[:, col_t], st_j[:, col_j])
+    assert st_t[:, cfs.COL_TILES].sum() > 0

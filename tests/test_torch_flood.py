@@ -59,6 +59,27 @@ def test_curve_codes_and_orders_equal(dim, bits):
     )
 
 
+@pytest.mark.parametrize("dim", [9, 24, 63, 64, 100])
+def test_curve_codes_past_8_coordinates(dim):
+    """At the engine's and K2's bits per axis, int64 curve codes equal the
+    reference's up to 63 coordinates; past that they code the first 63
+    coordinates (a wider code would shift past the sign bit), stay
+    non-negative and agree between numpy and torch."""
+    bits = max(1, min(10, cf.MORTON_BITS_TOTAL // dim))
+    p32 = np.random.default_rng(dim).random((2000, dim)).astype(np.float32)
+    got = cf.hilbert_codes_np(p32, bits)
+    np.testing.assert_array_equal(
+        cf.hilbert_codes(torch.from_numpy(p32), bits).numpy(), got)
+    assert (got >= 0).all()
+    coded = min(dim, 63 // bits)
+    np.testing.assert_array_equal(
+        got, pf.hilbert_codes_np(p32[:, :coded], bits))
+    if dim <= 63:
+        np.testing.assert_array_equal(got, pf.hilbert_codes_np(p32, bits))
+        np.testing.assert_array_equal(cf.spatial_order_np(p32, bits),
+                                      pf.spatial_order_np(p32, bits))
+
+
 def test_sample_orders_equal():
     from flooder_tpu.core import _grid_host
 
@@ -245,7 +266,7 @@ def _meta_operands(dim=3, s_total=8):
 @pytest.mark.parametrize(
     "bad,error",
     [("float64", TypeError), ("int64", TypeError),
-     ("dim9", NotImplementedError), ("rows", ValueError),
+     ("dim0", ValueError), ("rows", ValueError),
      ("witnesses", ValueError)],
 )
 def test_flood_wrappers_share_one_operand_check(monkeypatch, wrapper, bad,
@@ -259,7 +280,7 @@ def test_flood_wrappers_share_one_operand_check(monkeypatch, wrapper, bad,
 
     monkeypatch.setattr(cf, "_lib", no_kernel)
     monkeypatch.setattr(cfs, "_lib", no_kernel)
-    ops = _meta_operands(dim=9 if bad == "dim9" else 3,
+    ops = _meta_operands(dim=0 if bad == "dim0" else 3,
                          s_total=12 if bad == "rows" else 8)
     if bad == "float64":
         ops[0] = ops[0].double()
@@ -282,20 +303,21 @@ def test_operand_check_wants_aligned_witnesses():
         cf._check_flood_operands(ops, "k")
 
 
-@pytest.mark.parametrize("dim", [5, 8])
+@pytest.mark.parametrize("dim", [5, 8, 9, 16, 64])
 def test_operand_check_takes_5_to_8_coordinates(dim):
-    """K1's and K3's operand check passes 5-8 coordinates (the kernels are
-    built for 1-8, K2's range) and names the limit past it."""
+    """K1's and K3's operand check passes 5-8 coordinates (template
+    instances) and 9, 16 and 64 (the runtime-width instance), and rejects
+    a cloud without coordinates."""
     ops = [torch.zeros_like(t, device="cpu") for t in _meta_operands(dim)]
     assert cf._check_flood_operands(ops, "k")[3] == dim
-    ops = [torch.zeros_like(t, device="cpu") for t in _meta_operands(9)]
-    with pytest.raises(NotImplementedError, match="1..8 coordinates"):
+    ops = [torch.zeros_like(t, device="cpu") for t in _meta_operands(0)]
+    with pytest.raises(ValueError, match="at least one coordinate"):
         cf._check_flood_operands(ops, "k")
 
 
 def test_ptxas_names_every_kernel_instance():
     """The build's ptxas parser names each instance with its template
-    arguments, K2's scalar type included."""
+    arguments, K2's scalar type included, and the runtime-width ones."""
     from flooder_tpu_torch.native.build import kernel_instance, ptxas_kernels
 
     names = {
@@ -308,6 +330,13 @@ def test_ptxas_names_every_kernel_instance():
         "_ZN12_GLOBAL__N_18fps_loopIfLi8EEEvNS_7FpsArgsIT_EE": (
             "fps_loop<float,8>"),
         "other_kernel": "other_kernel",
+        # the runtime-width instances
+        "_ZN12_GLOBAL__N_18fps_loopIdLi0EEEvNS_7FpsArgsIT_EE": (
+            "fps_loop<double,wide>"),
+        "_ZN40_GLOBAL__N__8_flood_cu_114flood_min_wideEPKfS1_S1_S1_": (
+            "flood_min_wide"),
+        "_ZN46_GLOBAL__N__8_flood_stats_cu_116flood_stats_wideEPKfS1_": (
+            "flood_stats_wide"),
     }
     for mangled, want in names.items():
         assert kernel_instance(mangled) == want

@@ -1,8 +1,10 @@
 """The port's FPS (the plain version of kernel K2) against flooder_tpu's
 XLA loop and its Pallas kernel in interpret mode, under the greedy-
-selection rule of tests/test_landmarks.py; the kernel's layout
-preparation against the TPU kernel's."""
+selection rule of tests/test_landmarks.py, also past 8 coordinates; the
+kernel's layout preparation against the TPU kernel's, and its own checks
+past 8 coordinates."""
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -74,3 +76,41 @@ def test_generate_landmarks_clamps_and_validates():
                                  device="cpu").shape == (50, 3)
     with pytest.raises(RuntimeError):
         ft.generate_landmarks(X, 0, device="cpu")
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("dim", [9, 16, 64, 100])
+def test_plain_fps_matches_xla_past_8_coordinates(dim, dtype):
+    """Past 8 coordinates flooder_tpu runs its XLA loop (the kernel K2's
+    runtime-width instance there): the port's plain version makes the same
+    greedy selection, in float32 and (with JAX in x64) float64."""
+    pts = np.random.default_rng(dim).random((1500, dim)).astype(dtype)
+    got = fps_torch(torch.from_numpy(pts), 40, 5).numpy()
+    with jax.enable_x64(dtype == np.float64):
+        want = np.asarray(fps_xla(pts, 40, 5))
+    _assert_same_greedy_selection(pts, got, want, 5)
+
+
+@pytest.mark.parametrize("dim", [9, 64, 100])
+def test_fps_prepare_past_8_coordinates(dim):
+    """K2's layout past 8 coordinates: the sort is a permutation, the
+    start index maps through it, every chunk box holds its points, the
+    padding columns copy the start point, and two calls agree (the codes
+    stay inside int64 at every width)."""
+    n, start = 9000, 13
+    x = np.random.default_rng(dim).random((n, dim)).astype(np.float32)
+    prep = cuda_fps._fps_prepare(torch.from_numpy(x), start)
+    pts_t, lo, hi, sstart, order = (t.numpy() for t in prep)
+    np.testing.assert_array_equal(np.sort(order), np.arange(n))
+    assert order[int(sstart[0])] == start
+    chunk = cuda_fps.FPS_CHUNK
+    assert pts_t.shape == (dim, 2 * chunk)
+    np.testing.assert_array_equal(pts_t[:, :n], x[order].T)
+    np.testing.assert_array_equal(
+        pts_t[:, n:], np.repeat(x[start][:, None], 2 * chunk - n, axis=1))
+    boxes = pts_t.reshape(dim, -1, chunk)
+    np.testing.assert_array_equal(lo, boxes.min(2))
+    np.testing.assert_array_equal(hi, boxes.max(2))
+    again = cuda_fps._fps_prepare(torch.from_numpy(x), start)
+    for a, b in zip(prep, again):
+        assert torch.equal(a, b)

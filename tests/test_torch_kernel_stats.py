@@ -42,7 +42,8 @@ REFERENCE_KEYS = {
 def _jax_k3(eng, ws, vl, centers, radii, nr, rt, tight):
     """The TPU tool's K3 in interpret mode over the whole work-list of
     ``_prep_inputs``' case (16,384 witnesses in 8 chunks, 8 blocks, some
-    zero-radius rows) as one segment (no padding). Returns (numpy
+    zero-radius rows), or of another case of the same form at any width,
+    as one segment (no padding). Returns (numpy
     operands in the TPU layout, the sorted pair list, out, stats)."""
     samples, tlo, thi, ub2, (active, dist) = pf._prep(
         jnp.asarray(vl), jnp.asarray(ws), jnp.asarray(centers),
@@ -65,7 +66,8 @@ def _jax_k3(eng, ws, vl, centers, radii, nr, rt, tight):
             jnp.asarray(radii[:, None]), tlo, thi, ub2,
             jnp.full((s_total, nr, rt), jnp.inf, jnp.float32),
             jnp.zeros((s_total, 128), jnp.int32),
-            bs=cf.BS, dim=3, nsub=cf.WCHUNK // cf.SUB, sub=cf.SUB,
+            bs=cf.BS, dim=vl.shape[-1], nsub=cf.WCHUNK // cf.SUB,
+            sub=cf.SUB,
             interpret=True,
         )
         out, stats = np.asarray(out), np.asarray(stats)

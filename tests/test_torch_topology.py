@@ -15,7 +15,10 @@ from flooder_tpu_torch.topology.persistence import (
     reduce_filtration,
 )
 
-CLOUDS = [(2, 60, 0), (2, 150, 1), (3, 80, 2), (3, 140, 3)]
+# 6-D and 9-D: the face lattice of high-dimensional cells (every face
+# level derived from the one above)
+CLOUDS = [(2, 60, 0), (2, 150, 1), (3, 80, 2), (3, 140, 3), (6, 24, 4),
+          (9, 16, 5)]
 
 
 def _trees(dim, n, seed):
