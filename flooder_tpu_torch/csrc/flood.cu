@@ -68,13 +68,22 @@
 //
 // 9 and more coordinates: one runtime-width instance, flood_min_wide (the
 // forms in flood_common.cuh). The same grid, launch order, work-list walk
-// and tests, on a coordinate-major copy of the samples; each admitted unit
-// stages its witnesses ball-local into shared memory, in pieces of
-// wide_piece(dim), compacted to the in-ball ones, and each thread sums
-// SPT x WIDE_W pairs at once over the coordinates. No FMA: its outputs and
-// counts equal the plain version's bit for bit. It has no cp.async fetch
-// and no staging pipeline (two barriers a piece and one a unit); bound as
-// above by fp32 issue, 3 instructions per coordinate of an in-ball pair.
+// and tests, on a coordinate-major copy of the samples, with rt / 2 threads
+// a CTA. What bounds it is the same fp32 issue, 2 * dim + 1 instructions
+// an in-ball pair (a sub and an FMA a coordinate, one min). What the design
+// does about it: the pair loop is a register tile of 8 samples x 8
+// witnesses a thread, both read from shared memory with LDS.128 (4 loads
+// for 64 pairs a coordinate), so the loop issues little besides its FADD
+// and FFMA; a unit's witnesses are compacted to the in-ball ones (ballot,
+// popc, one prefix over the sub-chunk, no shared atomics) and computed 32
+// at a time; the walk tests 32 list positions at once, a lane each (its
+// ball and box tests are latency chains over the coordinates); up to 16
+// coordinates the tile's samples are staged once a
+// simplex and the next ball candidate's rows are fetched with cp.async
+// while a unit computes (three barriers a unit); past 16 both operands go
+// in 16-coordinate slabs. Its d2 differs from the plain version's by the
+// rounding of two summation orders (at most 2 * dim * 2^-24 * d2); the
+// ball, box and tile tests are the plain version's arithmetic.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -256,7 +265,9 @@ cudaError_t launch(const float *samples, const float *witnesses,
 
 // The runtime-width instance (9 and more coordinates): see the note at the
 // top and flood_common.cuh.
-__global__ void __launch_bounds__(MAX_RT / SPT) flood_min_wide(
+constexpr int WIDE_THREADS = MAX_RT / 2;
+
+__global__ void __launch_bounds__(WIDE_THREADS, 2) flood_min_wide(
     const float *__restrict__ samples_t,  // (S, NR, dim, RT) ball-local
     const float *__restrict__ witnesses,  // (W, dim) kd-ordered
     const float *__restrict__ sub_lo,     // (W / SUB, dim) sub-chunk boxes
@@ -271,83 +282,119 @@ __global__ void __launch_bounds__(MAX_RT / SPT) flood_min_wide(
     const int *__restrict__ cta_order,    // (n_blk,) block of each CTA row
     float *__restrict__ out,              // (S, NR, RT) min d^2
     long long *__restrict__ stats,        // (n_blk * NR, 2)
-    int nr, int rt, int bs, int spc, int dim, int piece) {
-  // ws: the staged piece, (dim, piece); c: the simplex's centre; tlo, thi:
-  // the tile's sample box
+    int nr, int rt, int bs, int spc, int dim) {
+  // xs: the tile's samples (or a slab of them); ws: the staged unit (or a
+  // slab of a step); then raw, the next candidate's rows (one slab), or
+  // idx, the unit's in-ball positions (past one slab)
+  using namespace flood;
   extern __shared__ __align__(16) float dyn[];
-  float *ws = dyn;
-  float *c = ws + (size_t)dim * piece;
-  float *tlo = c + dim, *thi = tlo + dim;
-  __shared__ int cnt[2][2];  // a piece's front and back counts, by parity
-  __shared__ float wmax[MAX_WARPS];
+  const bool one = dim <= WIDE_KS;
+  float *xs = dyn;
+  float *ws = xs + (one ? dim : WIDE_KS) * WIDE_XS;
+  float *raw = ws + (one ? dim * SUB : WIDE_KS * WIDE_STEP);
+  unsigned short *idx = reinterpret_cast<unsigned short *>(raw);
+  __shared__ int gcnt[WIDE_GROUPS];
+  __shared__ float wmax[WIDE_MAX_WARPS];
 
   const int b = cta_order[blockIdx.x / nr];
   const int r = blockIdx.x - (blockIdx.x / nr) * nr;
-  const int tid = threadIdx.x, T = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int nw = blockDim.x >> 5;
+  const int xo = warp * WIDE_WARP_SAMPLES + 4 * (lane / WIDE_WL);
+  const int wo = 4 * (lane % WIDE_WL);
   const int c0 = blk_ptr[b], c1 = blk_ptr[b + 1];
   long long units = 0, inball = 0;
-  int pc = 0;  // pieces staged so far; piece i counts in cnt[i & 1]
-  if (tid < 4) cnt[tid >> 1][tid & 1] = 0;
 
   for (int si = 0; si < bs; ++si) {
     const int s = b * bs + si;
     const size_t tile = (size_t)s * nr + r;
-    __syncthreads();  // the last simplex's readers of c, tlo, thi are done
-    for (int d = tid; d < dim; d += T) {
-      c[d] = centers[(size_t)s * dim + d];
-      tlo[d] = tile_lo[tile * dim + d];
-      thi[d] = tile_hi[tile * dim + d];
-    }
-    __syncthreads();
+    const float *c = centers + (size_t)s * dim;
+    const float *tlo = tile_lo + tile * dim, *thi = tile_hi + tile * dim;
     const float rad = radii[s];
     const float r2 = __fmul_rn(rad, rad);
     const float ub = ub2[tile];
     const float *xt = samples_t + tile * dim * rt;
-    float acc[SPT];
+    __syncthreads();  // the last simplex's readers of xs are done
+    if (one) wide_stage_samples(xs, xt, dim, rt);
+    __syncthreads();
+    float mn[WIDE_TM];
 #pragma unroll
-    for (int k = 0; k < SPT; ++k) acc[k] = CUDART_INF_F;
-    float pm = CUDART_INF_F;  // the tile's max of acc
+    for (int k = 0; k < WIDE_TM; ++k) mn[k] = CUDART_INF_F;
+    float pm = CUDART_INF_F;  // the tile's max of its running mins
 
-    for (int p = c0; p < c1; ++p) {
-      for (int q = 0; q < spc; ++q) {
-        const int sub = blk_chunks[p] * spc + q;
-        if (!(flood::near2_wide(sub_lo, sub_hi, sub, c, dim) <= r2))
-          continue;  // skip 1
-        if (!(flood::gap2_wide(sub_lo, sub_hi, sub, c, tlo, thi, dim) <=
-              fminf(pm, ub)))
-          continue;  // skip 2
-        int total = 0;
-        for (int p0 = 0; p0 < SUB; p0 += piece, ++pc) {
-          int *cn = cnt[pc & 1];
-          __syncthreads();  // readers of ws and of the other counts done
-          if (tid == 0) cnt[(pc + 1) & 1][0] = cnt[(pc + 1) & 1][1] = 0;
-          flood::stage_wide(witnesses, sub, p0, min(piece, SUB - p0), c, r2,
-                            dim, ws, piece, cn);
-          __syncthreads();
-          const int m = cn[0];
-          total += m;
-          flood::min_over_piece_wide<SPT>(
-              ws, piece, (m + flood::WIDE_W - 1) / flood::WIDE_W *
-                  flood::WIDE_W, xt, rt, dim, acc);
+    // The walk, 32 list positions at a time: lane l of every warp takes
+    // position base + l (sub-chunk n % spc of the list's chunk n / spc),
+    // tests it against the ball (skip 1) and, where it passes, computes its
+    // gap to the tile's box for skip 2, whose bound changes with every unit.
+    // `todo` holds the lanes whose sub-chunk passed and is still ahead.
+    const int npos = (c1 - c0) * spc;
+    int base = -32, lsub = 0;
+    float lgap = 0.f;
+    unsigned todo = 0;
+    auto next_ball = [&](float &g2) -> int {
+      while (todo == 0) {
+        base += 32;
+        if (base >= npos) return -1;
+        const int n = base + lane;
+        bool pass = false;
+        if (n < npos) {
+          lsub = blk_chunks[c0 + n / spc] * spc + n % spc;
+          pass = near2_wide(sub_lo, sub_hi, lsub, c, dim) <= r2;  // skip 1
+          if (pass) lgap = gap2_wide(sub_lo, sub_hi, lsub, c, tlo, thi, dim);
         }
-        if (total == 0) flood::fold_masked_wide<SPT>(xt, rt, dim, acc);
-        units += 1;
-        inball += total;
-        float wm = acc[0];
-#pragma unroll
-        for (int k = 1; k < SPT; ++k) wm = fmaxf(wm, acc[k]);
-        for (int off = 16; off > 0; off >>= 1)
-          wm = fmaxf(wm, __shfl_xor_sync(flood::FULL, wm, off));
-        if (lane == 0) wmax[warp] = wm;
-        __syncthreads();
-        pm = wmax[0];
-        for (int w = 1; w < nw; ++w) pm = fmaxf(pm, wmax[w]);
+        todo = __ballot_sync(FULL, pass);
       }
+      const int l = __ffs(todo) - 1;
+      todo &= todo - 1;
+      g2 = __shfl_sync(FULL, lgap, l);
+      return __shfl_sync(FULL, lsub, l);
+    };
+
+    bool fetched = false;  // cand's rows are on their way into raw
+    float cgap = 0.f;      // cand's gap to the tile's box
+    int cand = next_ball(cgap);
+    while (cand >= 0) {
+      if (!(cgap <= fminf(pm, ub))) {  // skip 2
+        cand = next_ball(cgap);
+        fetched = false;
+        continue;
+      }
+      const float *rows = witnesses + (size_t)cand * SUB * dim;
+      if (one) {
+        if (!fetched) wide_fetch_raw(raw, witnesses, cand, dim);
+        cp_async_wait_all();
+        rows = raw;
+      }
+      const unsigned in_mask = wide_ball_test(rows, c, r2, dim, gcnt);
+      __syncthreads();  // gcnt published; the last unit's readers are done
+      const int m = wide_compact(rows, c, dim, in_mask, gcnt, one, ws, idx);
+      // fetch the next ball candidate while this unit computes
+      float ngap;
+      const int nxt = next_ball(ngap);
+      if (one && nxt >= 0) wide_fetch_raw(raw, witnesses, nxt, dim);
+      __syncthreads();  // the staged unit published
+      wide_min_over_unit(mn, xs, ws, idx, xt, witnesses, cand, c, rt, dim, m,
+                         one, xo, wo);
+      units += 1;
+      inball += m;
+      wide_lane_min(mn);
+      const float wm = wide_warp_max(mn);
+      if (lane == 0) wmax[warp] = wm;
+      __syncthreads();
+      pm = wmax[0];
+      for (int w = 1; w < nw; ++w) pm = fmaxf(pm, wmax[w]);
+      cand = nxt;
+      cgap = ngap;
+      fetched = true;
     }
-#pragma unroll
-    for (int k = 0; k < SPT; ++k) out[tile * rt + tid + k * T] = acc[k];
+    if (lane % WIDE_WL == 0) {
+      float *o = out + tile * rt + xo;
+      *reinterpret_cast<float4 *>(o) = make_float4(mn[0], mn[1], mn[2], mn[3]);
+      *reinterpret_cast<float4 *>(o + 32) =
+          make_float4(mn[4], mn[5], mn[6], mn[7]);
+    }
   }
+  cp_async_wait_all();  // a rejected candidate's rows may be in flight
   if (tid == 0) {
     const size_t row = (size_t)b * nr + r;
     stats[2 * row] = units;
@@ -366,15 +413,17 @@ cudaError_t launch_wide(const float *samples_t, const float *witnesses,
                         cudaStream_t stream, long long *launched) {
   const long long ctas = (long long)n_blk * nr;
   if (ctas == 0) return cudaSuccess;
-  const int piece = flood::wide_piece(dim);
-  const size_t smem = ((size_t)piece + 3) * dim * sizeof(float);
+  const size_t smem = flood::wide_smem_bytes(dim, true);
   cudaError_t e = cudaFuncSetAttribute(
       flood_min_wide, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flood_min_wide,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  flood_min_wide<<<(unsigned)ctas, rt / SPT, smem, stream>>>(
+  flood_min_wide<<<(unsigned)ctas, rt / 2, smem, stream>>>(
       samples_t, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, tile_hi,
-      ub2, blk_ptr, blk_chunks, cta_order, out, stats, nr, rt, bs, spc, dim,
-      piece);
+      ub2, blk_ptr, blk_chunks, cta_order, out, stats, nr, rt, bs, spc, dim);
   e = cudaGetLastError();
   if (e == cudaSuccess) ++*launched;
   return e;
@@ -390,10 +439,17 @@ const char *flooder_cuda_error_string(int code) {
 
 int flood_sub() { return SUB; }
 
+// Dynamic shared memory of flood_min_wide's CTA at `dim` coordinates (the
+// launch asks for it).
+long long flood_wide_smem_bytes(int dim) {
+  return (long long)flood::wide_smem_bytes(dim, true);
+}
+
 // Launch K1 on `stream`. `rt` must be a multiple of 128 and at most 512;
 // `dim` at least 1; `samples` (S, NR, RT, dim) for 1-8 coordinates and
-// coordinate-major, (S, NR, dim, RT), for more (flood_min_wide, whose
-// shared memory, 4 * dim * (wide_piece(dim) + 3) bytes, caps dim at 5,282);
+// coordinate-major, (S, NR, dim, RT), for more (flood_min_wide: its shared
+// memory, flood_wide_smem_bytes, is at most 98,304 bytes at 16
+// coordinates and 35,840 at any width past 16: no width cap);
 // `cta_order` a permutation of the blocks (CTA row i runs block
 // cta_order[i]); `witnesses` 16-byte aligned. *launched is set to the
 // number of kernel launches enqueued without error (0 when there is no

@@ -30,19 +30,25 @@
 // the ball folds in the one value such a witness gives: min is exact, so
 // the result is the min over all SUB witnesses bit for bit.
 //
-// Runtime width (9 and more coordinates; the *_wide forms at the end). A
-// sample's or witness's coordinates no longer fit in registers, so a unit's
-// witnesses are staged ball-local into dynamic shared memory, indexed by
-// coordinate ((dim, piece) floats), in pieces of `piece` witnesses that fit
-// beside the kernel's other buffers (wide_piece; the sub-chunk of SUB stays
-// the unit of admission and counting). Samples are read from device memory
-// in a coordinate-major copy, (S, NR, dim, RT), so that a warp's loads of
-// one coordinate are contiguous; a tile's samples stay in L1 across a
-// unit. Each thread keeps SPT samples x WIDE_W witnesses of partial sums in
-// registers and walks the coordinates once for them. Every pair's d2 is
-// summed in coordinate order with separately rounded operations, as the
-// plain versions do (no FMA), so the wide instances equal their plain
-// versions bit for bit, and K3's wide instance equals K1's.
+// Runtime width (9 and more coordinates; the wide_* forms at the end). The
+// pair loop is a register tile shaped like a matrix product whose inner
+// term is (y - x)^2 instead of x * y: each thread keeps WIDE_TM samples x
+// WIDE_TN witnesses of partial d2 in registers and walks the coordinates,
+// reading both operands coordinate-major from shared memory with 128-bit
+// loads. Samples come from a coordinate-major copy, (S, NR, dim, RT). A
+// unit's in-ball witnesses are compacted in witness order (warp ballot +
+// popc per 32 witnesses and a prefix over the sub-chunk, no shared
+// atomics). Up to WIDE_KS coordinates (one slab) the tile's samples are
+// staged once per simplex and a unit's witnesses once per unit, and K1
+// fetches the next candidate's rows with cp.async while a unit computes;
+// past WIDE_KS both operands go through shared memory in slabs of WIDE_KS
+// coordinates, 32 witnesses at a time, and the partial sums persist across
+// slabs (the K-loop of a matrix product). Each d2 is summed in coordinate
+// order with one FMA a coordinate, d2 = fma(t, t, d2) with t = y - x (the
+// first coordinate t * t), as the template instances do: it differs from
+// the plain versions' separately rounded sums by the rounding of two
+// summation orders, at most 2 * dim * 2^-24 * d2. K3's wide instance uses
+// the same forms, so its output equals K1's bit for bit.
 
 #pragma once
 
@@ -64,15 +70,15 @@ constexpr int MAX_DIM = 8;  // the widest template instance
 // (dim <= 8) it is at most 7.2e37, under FLT_MAX (3.4e38) by a factor of
 // 4.7: finite and at or above the callers' 1e30 "no witness" mark.
 static_assert(MAX_DIM * 9e36f < 3.4e38f, "masked d2 must stay finite");
-// The wide instances sum the same terms in the same order with the same
-// rounding as the plain versions (cuda_flood.py, cuda_flood_stats.py), so a
-// masked d2 is the plain version's value bit for bit: finite (>= 8.1e37)
-// up to 37 coordinates, and +inf from 38 on, where 38 * 9e36 passes
-// FLT_MAX. Both sides then act alike on it: a unit with no in-ball witness
-// folds in +inf (fminf leaves acc as it was, torch.minimum too); a tile
-// whose samples met no in-ball witness keeps acc = +inf, so its max is
-// +inf and the tile bound min(+inf, ub2) is ub2 on both sides; and the
-// callers' _inf_masked maps every d2 >= 1e30, finite or not, to +inf.
+// The wide instances sum the same terms with one FMA a term, so a masked
+// d2 differs from the plain versions' value by a few ulps at most: finite
+// (>= 8.1e37) up to 37 coordinates, and +inf from 38 on, where 38 * 9e36
+// passes FLT_MAX by 0.5 %, far beyond any rounding, on both sides alike. Both
+// sides then act alike on it: a unit with no in-ball witness folds in +inf
+// (fminf leaves acc as it was, torch.minimum too); a tile whose samples met
+// no in-ball witness keeps acc = +inf, so its max is +inf and the tile bound
+// min(+inf, ub2) is ub2 on both sides; and the callers' _inf_masked maps
+// every d2 >= 1e30, finite or not, to +inf.
 
 // A staged witness of 5-8 coordinates: two float4, read as two LDS.128.
 struct __align__(16) Staged8 {
@@ -292,16 +298,38 @@ __device__ __forceinline__ int min_over_staged(const Staged<DIM> *wsh,
 // Runtime width: the forms of the wide instances (9 and more coordinates)
 // ---------------------------------------------------------------------------
 
-constexpr int WIDE_W = 8;  // witnesses a thread sums at once (register tile)
-// Bytes of a staged piece that wide_piece aims at: 8 CTAs of 128 threads
-// fill an SM, and 8 such pieces fit in its 228 KB of shared memory.
-constexpr int WIDE_PIECE_BYTES = 24 * 1024;
+constexpr int WIDE_TM = 8;  // samples a thread (register tile rows)
+constexpr int WIDE_TN = 8;  // witnesses a thread (register tile columns)
+constexpr int WIDE_WL = 4;  // lanes of a warp that share samples
+constexpr int WIDE_STEP = WIDE_WL * WIDE_TN;             // 32 witnesses
+constexpr int WIDE_WARP_SAMPLES = 32 / WIDE_WL * WIDE_TM;  // 64 samples
+constexpr int WIDE_KS = 16;            // coordinates of a slab
+constexpr int WIDE_GROUPS = SUB / 32;  // ballot groups of a sub-chunk
+constexpr int WIDE_XS = 512;  // floats a staged coordinate row of samples
+constexpr int WIDE_MAX_WARPS = WIDE_XS / WIDE_WARP_SAMPLES;  // at rt 512
+// A CTA has rt / 2 threads: rt / 64 warps, each on 64 of the tile's
+// samples. Lane l holds samples xo + {0..3, 32..35} with xo = 64 * warp +
+// 4 * (l >> 2), and witnesses wo + {0..3, 16..19} of each 32-witness step
+// with wo = 4 * (l & 3): one LDS.128 of 8 lanes reads 128 contiguous bytes.
 
-// Witnesses staged at once at `dim` coordinates: a multiple of WIDE_W, at
-// most SUB and at least WIDE_W (the CTA's shared memory then caps dim).
-__host__ __device__ constexpr int wide_piece(int dim) {
-  const int fit = WIDE_PIECE_BYTES / (4 * dim) / WIDE_W * WIDE_W;
-  return fit < WIDE_W ? WIDE_W : fit > SUB ? SUB : fit;
+// Slots a unit of m in-ball witnesses computes: m rounded up to a step, and
+// one step of masked witnesses when m is 0 (the value every out-of-ball
+// witness gives, as the plain versions' min over all SUB).
+__host__ __device__ constexpr int wide_padded(int m) {
+  return m == 0 ? WIDE_STEP : (m + WIDE_STEP - 1) / WIDE_STEP * WIDE_STEP;
+}
+
+// Dynamic shared memory of the wide forms at `dim` coordinates: up to
+// WIDE_KS coordinates the tile's samples (dim, WIDE_XS), the staged unit
+// (dim, SUB) and, with `raw`, the raw rows of the next candidate (SUB,
+// dim); past it a slab of each, (WIDE_KS, WIDE_XS) and (WIDE_KS,
+// WIDE_STEP), and the unit's in-ball positions (SUB shorts). Both strides
+// are constants, so the pair loop's addresses are immediates.
+__host__ __device__ constexpr size_t wide_smem_bytes(int dim, bool raw) {
+  return dim <= WIDE_KS
+             ? ((size_t)dim * WIDE_XS + (raw ? 2 : 1) * (size_t)dim * SUB) * 4
+             : ((size_t)WIDE_KS * WIDE_XS + WIDE_KS * WIDE_STEP) * 4 +
+                   SUB * 2;
 }
 
 // The ball test at runtime width: squared distance from the centre c to
@@ -335,78 +363,217 @@ __device__ __forceinline__ float gap2_wide(const float *sub_lo,
   return g2;
 }
 
-// Stage witnesses [p0, p0 + n) of sub-chunk `sub` (n a multiple of WIDE_W)
-// into ws, (dim, piece) floats: ball-local, the in-ball ones at the front
-// and the out-of-ball ones, moved to MASK, at the back, so the slots from
-// the in-ball count up to n hold masked witnesses. cnt[0] and cnt[1] count
-// the front and the back and must be 0 on entry; the order within each part
-// is arbitrary, which min does not see. Readers need a barrier after it.
-__device__ __forceinline__ void stage_wide(const float *witnesses, int sub,
-                                           int p0, int n, const float *c,
-                                           float r2, int dim, float *ws,
-                                           int piece, int *cnt) {
-  for (int w = threadIdx.x; w < n; w += blockDim.x) {
-    const float *y = witnesses + ((size_t)sub * SUB + p0 + w) * dim;
+__device__ __forceinline__ void cp_async4(void *smem, const void *gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+// Fetch the rows of sub-chunk `sub` that wide_ball_test gives this thread
+// (witnesses tid + i * blockDim.x) into raw, (SUB, dim) floats. Only this
+// thread reads them back, so no barrier is needed.
+__device__ __forceinline__ void wide_fetch_raw(float *raw,
+                                               const float *witnesses,
+                                               int sub, int dim) {
+  cp_async_wait_all();  // no older copy may land after this one
+  const float *src = witnesses + (size_t)sub * SUB * dim;
+  for (int w = threadIdx.x; w < SUB; w += blockDim.x)
+    for (int d = 0; d < dim; ++d)
+      cp_async4(raw + w * dim + d, src + (size_t)w * dim + d);
+  cp_async_commit();
+}
+
+// Staging a unit, part 1: the ball test (|y - c|^2 <= r2, summed in
+// coordinate order, separately rounded as in the plain versions) of the
+// SUB rows at `rows` (shared or global memory). This thread tests
+// witnesses tid + i * blockDim.x: bit i of the result is set when that one
+// lies in the ball. gcnt[g] gets the in-ball count of witnesses [32 g,
+// 32 g + 32). Readers of gcnt need a barrier after it.
+__device__ __forceinline__ unsigned wide_ball_test(const float *rows,
+                                                   const float *c, float r2,
+                                                   int dim, int *gcnt) {
+  const int lane = threadIdx.x & 31;
+  unsigned in_mask = 0;
+  for (int i = 0, w = threadIdx.x; w < SUB; ++i, w += blockDim.x) {
+    const float *y = rows + (size_t)w * dim;
     float y2 = 0.f;
     for (int d = 0; d < dim; ++d) y2 = sq_add(y2, __fsub_rn(y[d], c[d]));
     const bool in = y2 <= r2;
-    const int pos =
-        in ? atomicAdd(&cnt[0], 1) : n - 1 - atomicAdd(&cnt[1], 1);
-    for (int d = 0; d < dim; ++d)
-      ws[(size_t)d * piece + pos] = in ? __fsub_rn(y[d], c[d]) : MASK;
+    const unsigned bal = __ballot_sync(FULL, in);
+    if (lane == 0) gcnt[w >> 5] = __popc(bal);
+    in_mask |= static_cast<unsigned>(in) << i;
+  }
+  return in_mask;
+}
+
+// Staging a unit, part 2 (after a barrier): the in-ball witnesses in
+// witness order, ball-local, into ws (dim, SUB) when the tile is one slab
+// (`one`), with slots [m, wide_padded(m)) masked; else their positions in
+// the sub-chunk into idx. Returns the in-ball count m. Readers need a
+// barrier after it.
+__device__ __forceinline__ int wide_compact(const float *rows,
+                                            const float *c, int dim,
+                                            unsigned in_mask,
+                                            const int *gcnt, bool one,
+                                            float *ws,
+                                            unsigned short *idx) {
+  const unsigned below = (1u << (threadIdx.x & 31)) - 1u;
+  int m = 0;
+  for (int g = 0; g < WIDE_GROUPS; ++g) m += gcnt[g];
+  for (int i = 0, w = threadIdx.x; w < SUB; ++i, w += blockDim.x) {
+    const bool in = (in_mask >> i) & 1u;
+    const unsigned bal = __ballot_sync(FULL, in);
+    if (!in) continue;
+    int pos = __popc(bal & below);
+    for (int g = 0; g < (w >> 5); ++g) pos += gcnt[g];
+    if (one) {
+      const float *y = rows + (size_t)w * dim;
+      for (int d = 0; d < dim; ++d) ws[d * SUB + pos] = __fsub_rn(y[d], c[d]);
+    } else {
+      idx[pos] = static_cast<unsigned short>(w);
+    }
+  }
+  if (one)
+    for (int p = m + threadIdx.x; p < wide_padded(m); p += blockDim.x)
+      for (int d = 0; d < dim; ++d) ws[d * SUB + p] = MASK;
+  return m;
+}
+
+// Copy kd coordinate rows of rt samples (16-byte aligned, contiguous at
+// src) into xs, WIDE_XS floats a row.
+__device__ __forceinline__ void wide_stage_samples(float *xs,
+                                                   const float *src, int kd,
+                                                   int rt) {
+  const float4 *s4 = reinterpret_cast<const float4 *>(src);
+  float4 *d4 = reinterpret_cast<float4 *>(xs);
+  const int q = rt / 4;  // float4 a row
+  for (int i = threadIdx.x; i < kd * q; i += blockDim.x)
+    d4[i / q * (WIDE_XS / 4) + i % q] = __ldg(s4 + i);
+}
+
+// Past one slab: coordinates [k0, k0 + kd) of the tile's samples into xs
+// (kd, WIDE_XS), and of the unit's in-ball witnesses [w0, w0 + WIDE_STEP),
+// ball-local, into ws (kd, WIDE_STEP), masked from slot m on.
+__device__ __forceinline__ void wide_stage_slab(
+    float *xs, float *ws, const float *xt, const float *witnesses, int sub,
+    const unsigned short *idx, const float *c, int rt, int dim, int m,
+    int w0, int k0, int kd) {
+  wide_stage_samples(xs, xt + (size_t)k0 * rt, kd, rt);
+  for (int i = threadIdx.x; i < WIDE_STEP * kd; i += blockDim.x) {
+    const int w = i / kd, d = i - w * kd;
+    ws[d * WIDE_STEP + w] =
+        w0 + w < m
+            ? __fsub_rn(witnesses[((size_t)sub * SUB + idx[w0 + w]) * dim +
+                                  k0 + d],
+                        c[k0 + d])
+            : MASK;
   }
 }
 
-// acc[k] = min(acc[k], d2 from sample k to each of the first m_pad staged
-// witnesses, m_pad a multiple of WIDE_W): xt[d * rt + j] is coordinate d of
-// the tile's sample j, and this thread's samples are j = threadIdx.x +
-// k * blockDim.x. Each d2 is summed in coordinate order, separately rounded.
-template <int SPT>
-__device__ __forceinline__ void min_over_piece_wide(
-    const float *ws, int piece, int m_pad, const float *__restrict__ xt,
-    int rt, int dim, float (&acc)[SPT]) {
-  const int j0 = threadIdx.x, T = blockDim.x;
-  for (int w0 = 0; w0 < m_pad; w0 += WIDE_W) {
-    float d2[SPT][WIDE_W];
+// Eight values of a coordinate row: p[0..3] and p[gap..gap + 3].
+__device__ __forceinline__ void wide_load8(const float *p, int gap,
+                                           float (&v)[8]) {
+  const float4 a = *reinterpret_cast<const float4 *>(p);
+  const float4 b = *reinterpret_cast<const float4 *>(p + gap);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// The register tile's first coordinate: a[k][i] = t * t, t = y_i - x_k
+// (fma(t, t, 0) rounds alike). x and y point at this thread's samples and
+// witnesses in that coordinate's row.
+__device__ __forceinline__ void wide_first(float (&a)[WIDE_TM][WIDE_TN],
+                                           const float *x, const float *y) {
+  float xv[WIDE_TM], yv[WIDE_TN];
+  wide_load8(x, 32, xv);
+  wide_load8(y, 16, yv);
 #pragma unroll
-    for (int k = 0; k < SPT; ++k)
+  for (int k = 0; k < WIDE_TM; ++k)
 #pragma unroll
-      for (int i = 0; i < WIDE_W; ++i) d2[k][i] = 0.f;
-    for (int d = 0; d < dim; ++d) {
-      const float4 *yv =
-          reinterpret_cast<const float4 *>(ws + (size_t)d * piece + w0);
-      const float4 ya = yv[0], yb = yv[1];
-      const float y[WIDE_W] = {ya.x, ya.y, ya.z, ya.w,
-                               yb.x, yb.y, yb.z, yb.w};
+    for (int i = 0; i < WIDE_TN; ++i) {
+      const float t = __fsub_rn(yv[i], xv[k]);
+      a[k][i] = __fmul_rn(t, t);
+    }
+}
+
+// The pair loop: a[k][i] = fma(t, t, a[k][i]) over n more coordinate rows,
+// WIDE_XS floats apart for the samples and YS for the witnesses.
+template <int YS>
+__device__ __forceinline__ void wide_accumulate(
+    float (&a)[WIDE_TM][WIDE_TN], const float *x, const float *y, int n) {
+#pragma unroll 2
+  for (const float *end = x + n * WIDE_XS; x != end;
+       x += WIDE_XS, y += YS) {
+    float xv[WIDE_TM], yv[WIDE_TN];
+    wide_load8(x, 32, xv);
+    wide_load8(y, 16, yv);
 #pragma unroll
-      for (int k = 0; k < SPT; ++k) {
-        const float x = __ldg(xt + (size_t)d * rt + j0 + k * T);
+    for (int k = 0; k < WIDE_TM; ++k)
 #pragma unroll
-        for (int i = 0; i < WIDE_W; ++i)
-          d2[k][i] = sq_add(d2[k][i], __fsub_rn(y[i], x));
+      for (int i = 0; i < WIDE_TN; ++i) {
+        const float t = __fsub_rn(yv[i], xv[k]);
+        a[k][i] = __fmaf_rn(t, t, a[k][i]);
+      }
+  }
+}
+
+// mn[k] = min(mn[k], d2 from this thread's sample k to its witness columns
+// of a staged unit of m in-ball witnesses). One slab: xs and ws hold the
+// samples and the unit. Past it: each 32-witness step stages the slabs of
+// both operands in turn, from xt (the tile's samples, (dim, rt)) and the
+// in-ball positions idx; every thread of the CTA must call it.
+__device__ __forceinline__ void wide_min_over_unit(
+    float (&mn)[WIDE_TM], float *xs, float *ws, const unsigned short *idx,
+    const float *xt, const float *witnesses, int sub, const float *c,
+    int rt, int dim, int m, bool one, int xo, int wo) {
+  for (int w0 = 0; w0 < wide_padded(m); w0 += WIDE_STEP) {
+    float a[WIDE_TM][WIDE_TN];
+    for (int k0 = 0; k0 < dim; k0 += WIDE_KS) {
+      const float *x = xs + xo;
+      if (one) {
+        const float *y = ws + w0 + wo;
+        wide_first(a, x, y);
+        wide_accumulate<SUB>(a, x + WIDE_XS, y + SUB, dim - 1);
+        continue;  // one slab: k0 + WIDE_KS passes dim
+      }
+      const int kd = min(WIDE_KS, dim - k0);
+      __syncthreads();  // readers of the last slabs are done
+      wide_stage_slab(xs, ws, xt, witnesses, sub, idx, c, rt, dim, m, w0, k0,
+                      kd);
+      __syncthreads();
+      const float *y = ws + wo;
+      if (k0 == 0) {
+        wide_first(a, x, y);
+        wide_accumulate<WIDE_STEP>(a, x + WIDE_XS, y + WIDE_STEP, kd - 1);
+      } else {
+        wide_accumulate<WIDE_STEP>(a, x, y, kd);
       }
     }
 #pragma unroll
-    for (int k = 0; k < SPT; ++k)
+    for (int k = 0; k < WIDE_TM; ++k)
 #pragma unroll
-      for (int i = 0; i < WIDE_W; ++i) acc[k] = fminf(acc[k], d2[k][i]);
+      for (int i = 0; i < WIDE_TN; ++i) mn[k] = fminf(mn[k], a[k][i]);
   }
 }
 
-// Fold in the value every out-of-ball witness gives (a unit with no in-ball
-// witness): the sum over d of (MASK - x[d])^2, in coordinate order.
-template <int SPT>
-__device__ __forceinline__ void fold_masked_wide(const float *__restrict__ xt,
-                                                 int rt, int dim,
-                                                 float (&acc)[SPT]) {
+// The min over the WIDE_WL lanes that share samples: afterwards each of
+// them holds its samples' exact running mins.
+__device__ __forceinline__ void wide_lane_min(float (&mn)[WIDE_TM]) {
 #pragma unroll
-  for (int k = 0; k < SPT; ++k) {
-    const float *x = xt + threadIdx.x + k * blockDim.x;
-    float m2 = 0.f;
-    for (int d = 0; d < dim; ++d)
-      m2 = sq_add(m2, __fsub_rn(MASK, __ldg(x + (size_t)d * rt)));
-    acc[k] = fminf(acc[k], m2);
-  }
+  for (int k = 0; k < WIDE_TM; ++k)
+    for (int off = 1; off < WIDE_WL; off <<= 1)
+      mn[k] = fminf(mn[k], __shfl_xor_sync(FULL, mn[k], off));
+}
+
+// The warp's max of its samples' running mins (after wide_lane_min).
+__device__ __forceinline__ float wide_warp_max(const float (&mn)[WIDE_TM]) {
+  float wm = mn[0];
+#pragma unroll
+  for (int k = 1; k < WIDE_TM; ++k) wm = fmaxf(wm, mn[k]);
+  for (int off = 16; off > 0; off >>= 1)
+    wm = fmaxf(wm, __shfl_xor_sync(FULL, wm, off));
+  return wm;
 }
 
 }  // namespace flood

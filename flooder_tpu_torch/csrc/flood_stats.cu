@@ -69,11 +69,11 @@
 //
 // 9 and more coordinates: one runtime-width instance, flood_stats_wide,
 // with K1's wide forms (flood_common.cuh): the same tests, counters and
-// launch order, one group of rt / SPT threads a CTA that computes a unit's
-// tiles one after another, the running mins in `out` (each thread reads and
-// writes only its own samples) and the tile maxima double-buffered in
-// shared memory as above. No FMA: its output equals K1's wide instance and
-// its plain version bit for bit.
+// launch order, rt / 2 threads a CTA that compute a unit's tiles one after
+// another on the unit's compacted witnesses (each tile's samples staged in
+// turn), the running mins in `out` and the tile maxima double-buffered in
+// shared memory as above. Each d2 is summed as K1's wide instance sums it
+// (one FMA a coordinate), so its output equals K1's bit for bit.
 
 #include <cuda_runtime.h>
 #include <math_constants.h>
@@ -317,7 +317,18 @@ cudaError_t launch(const float *samples, const float *witnesses,
 
 // The runtime-width instance (9 and more coordinates); see the note at the
 // top.
-__global__ void __launch_bounds__(MAX_RT / SPT) flood_stats_wide(
+constexpr int WIDE_THREADS = MAX_RT / 2;
+
+// Dynamic shared memory of flood_stats_wide: K1's wide forms without the
+// raw buffer, then the simplex's sample box (2 * dim floats) and two
+// buffers of tile maxima (2 * nr * WIDE_MAX_WARPS floats).
+size_t stats_wide_smem(int dim, int nr) {
+  return flood::wide_smem_bytes(dim, false) +
+         (2 * (size_t)dim + 2 * (size_t)nr * flood::WIDE_MAX_WARPS) *
+             sizeof(float);
+}
+
+__global__ void __launch_bounds__(WIDE_THREADS, 2) flood_stats_wide(
     const float *__restrict__ samples_t,  // (S, NR, dim, RT) ball-local
     const float *__restrict__ witnesses,  // (W, dim) kd-ordered
     const float *__restrict__ sub_lo,     // (W / SUB, dim) sub-chunk boxes
@@ -332,33 +343,36 @@ __global__ void __launch_bounds__(MAX_RT / SPT) flood_stats_wide(
     const int *__restrict__ sim_order,    // (S,) simplex of each CTA
     float *__restrict__ out,              // (S, NR, RT) min d^2
     long long *__restrict__ stats,        // (S, 3)
-    int nr, int rt, int bs, int spc, int dim, int piece) {
-  // ws: the staged piece, (dim, piece); c: the centre; slo, shi: the
-  // simplex's sample box; wmax: two buffers of (nr, MAX_GROUP_WARPS), per
+    int nr, int rt, int bs, int spc, int dim) {
+  // xs, ws (and idx past one slab): K1's wide staging; slo, shi: the
+  // simplex's sample box; wmax: two buffers of (nr, WIDE_MAX_WARPS), per
   // tile and warp that warp's max of the tile's running mins
+  using namespace flood;
   extern __shared__ __align__(16) float dyn[];
-  float *ws = dyn;
-  float *c = ws + (size_t)dim * piece;
-  float *slo = c + dim, *shi = slo + dim;
+  const bool one = dim <= WIDE_KS;
+  float *xs = dyn;
+  float *ws = xs + (one ? dim : WIDE_KS) * WIDE_XS;
+  unsigned short *idx =
+      reinterpret_cast<unsigned short *>(ws + WIDE_KS * WIDE_STEP);
+  float *slo = dyn + wide_smem_bytes(dim, false) / sizeof(float);
+  float *shi = slo + dim;
   float *wmax = shi + dim;
-  __shared__ int cnt[2][2];  // a piece's front and back counts, by parity
+  __shared__ int gcnt[WIDE_GROUPS];
 
   const int s = sim_order[blockIdx.x];
   const int b = s / bs;
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
+  const int xo = warp * WIDE_WARP_SAMPLES + 4 * (lane / WIDE_WL);
+  const int wo = 4 * (lane % WIDE_WL);
   const int c0 = blk_ptr[b], c1 = blk_ptr[b + 1];
   const size_t row0 = (size_t)s * nr;  // the simplex's first tile
+  const float *c = centers + (size_t)s * dim;
 
-  if (tid < 4) cnt[tid >> 1][tid & 1] = 0;
-  for (int i = tid; i < 2 * nr * MAX_GROUP_WARPS; i += T)
+  for (int i = tid; i < 2 * nr * WIDE_MAX_WARPS; i += T)
     wmax[i] = CUDART_INF_F;
-  for (int r = 0; r < nr; ++r)
-#pragma unroll
-    for (int k = 0; k < SPT; ++k)
-      out[(row0 + r) * rt + tid + k * T] = CUDART_INF_F;
+  for (int i = tid; i < nr * rt; i += T) out[row0 * rt + i] = CUDART_INF_F;
   for (int d = tid; d < dim; d += T) {
-    c[d] = centers[(size_t)s * dim + d];
     float lo = tile_lo[row0 * dim + d], hi = tile_hi[row0 * dim + d];
     for (int r = 1; r < nr; ++r) {
       lo = fminf(lo, tile_lo[(row0 + r) * dim + d]);
@@ -370,12 +384,11 @@ __global__ void __launch_bounds__(MAX_RT / SPT) flood_stats_wide(
   const float rad = radii[s];
   const float r2 = __fmul_rn(rad, rad);
   int units = 0, tiles = 0;
-  int pc = 0;   // pieces staged so far; piece i counts in cnt[i & 1]
   int cur = 0;  // the wmax buffer that holds the published maxima
   __syncthreads();
 
   auto wmax_at = [&](int buf, int r) {
-    return wmax + (buf * nr + r) * MAX_GROUP_WARPS;
+    return wmax + (buf * nr + r) * WIDE_MAX_WARPS;
   };
   auto tile_max = [&](int r) {  // tile r's current max running min
     const float *m = wmax_at(cur, r);
@@ -385,8 +398,8 @@ __global__ void __launch_bounds__(MAX_RT / SPT) flood_stats_wide(
   };
   auto tile_pass = [&](int sub, int r) {  // test 3
     const size_t tile = row0 + r;
-    return flood::gap2_wide(sub_lo, sub_hi, sub, c, tile_lo + tile * dim,
-                            tile_hi + tile * dim, dim) <=
+    return gap2_wide(sub_lo, sub_hi, sub, c, tile_lo + tile * dim,
+                     tile_hi + tile * dim, dim) <=
            fminf(tile_max(r), ub2[tile]);
   };
 
@@ -396,64 +409,47 @@ __global__ void __launch_bounds__(MAX_RT / SPT) flood_stats_wide(
     for (int r = 1; r < nr; ++r) s_bound = fmaxf(s_bound, tile_max(r));
     for (int q = 0; q < spc; ++q) {
       const int sub = blk_chunks[p] * spc + q;
-      if (!(flood::near2_wide(sub_lo, sub_hi, sub, c, dim) <= r2))
+      if (!(near2_wide(sub_lo, sub_hi, sub, c, dim) <= r2))
         continue;  // test 1
-      if (!(flood::gap2_wide(sub_lo, sub_hi, sub, c, slo, shi, dim) <=
-            s_bound))
+      if (!(gap2_wide(sub_lo, sub_hi, sub, c, slo, shi, dim) <= s_bound))
         continue;  // test 2
       ++units;
       int k = 0;  // the unit's computed tiles
       for (int r = 0; r < nr; ++r) k += tile_pass(sub, r);
       if (k == 0) continue;
       tiles += k;
-      int total = 0;
-      for (int p0 = 0; p0 < SUB; p0 += piece, ++pc) {
-        int *cn = cnt[pc & 1];
-        __syncthreads();  // readers of ws and of the other counts done
-        if (tid == 0) cnt[(pc + 1) & 1][0] = cnt[(pc + 1) & 1][1] = 0;
-        flood::stage_wide(witnesses, sub, p0, min(piece, SUB - p0), c, r2,
-                          dim, ws, piece, cn);
-        __syncthreads();
-        const int m = cn[0];
-        total += m;
-        if (m == 0) continue;
-        const int m_pad = (m + flood::WIDE_W - 1) / flood::WIDE_W *
-                          flood::WIDE_W;
-        for (int r = 0; r < nr; ++r) {
-          if (!tile_pass(sub, r)) continue;
-          float *mins = out + (row0 + r) * rt + tid;
-          float acc[SPT];
-#pragma unroll
-          for (int kk = 0; kk < SPT; ++kk) acc[kk] = mins[kk * T];
-          flood::min_over_piece_wide<SPT>(ws, piece, m_pad,
-                                          samples_t + (row0 + r) * dim * rt,
-                                          rt, dim, acc);
-#pragma unroll
-          for (int kk = 0; kk < SPT; ++kk) mins[kk * T] = acc[kk];
-        }
-      }
-      // publish the computed tiles' maxima in the other buffer, and carry
-      // the other tiles' maxima over to it
+      const float *rows = witnesses + (size_t)sub * SUB * dim;
+      const unsigned in_mask = wide_ball_test(rows, c, r2, dim, gcnt);
+      __syncthreads();  // gcnt published; the last unit's readers are done
+      const int m = wide_compact(rows, c, dim, in_mask, gcnt, one, ws, idx);
+      __syncthreads();  // the staged unit published
       for (int r = 0; r < nr; ++r) {
         if (!tile_pass(sub, r)) {
+          // carry the tile's maxima over to the buffer the next unit reads
           if (tid < nw) wmax_at(cur ^ 1, r)[tid] = wmax_at(cur, r)[tid];
           continue;
         }
-        float *mins = out + (row0 + r) * rt + tid;
-        float acc[SPT];
-#pragma unroll
-        for (int kk = 0; kk < SPT; ++kk) acc[kk] = mins[kk * T];
-        if (total == 0) {
-          flood::fold_masked_wide<SPT>(samples_t + (row0 + r) * dim * rt,
-                                       rt, dim, acc);
-#pragma unroll
-          for (int kk = 0; kk < SPT; ++kk) mins[kk * T] = acc[kk];
+        const float *xt = samples_t + (row0 + r) * dim * rt;
+        float *o = out + (row0 + r) * rt + xo;
+        const float4 lo4 = *reinterpret_cast<const float4 *>(o);
+        const float4 hi4 = *reinterpret_cast<const float4 *>(o + 32);
+        float mn[WIDE_TM] = {lo4.x, lo4.y, lo4.z, lo4.w,
+                             hi4.x, hi4.y, hi4.z, hi4.w};
+        if (one) {
+          __syncthreads();  // the last tile's readers of xs are done
+          wide_stage_samples(xs, xt, dim, rt);
+          __syncthreads();
         }
-        float wm = acc[0];
-#pragma unroll
-        for (int kk = 1; kk < SPT; ++kk) wm = fmaxf(wm, acc[kk]);
-        for (int off = 16; off > 0; off >>= 1)
-          wm = fmaxf(wm, __shfl_xor_sync(flood::FULL, wm, off));
+        wide_min_over_unit(mn, xs, ws, idx, xt, witnesses, sub, c, rt, dim,
+                           m, one, xo, wo);
+        wide_lane_min(mn);
+        if (lane % WIDE_WL == 0) {
+          *reinterpret_cast<float4 *>(o) =
+              make_float4(mn[0], mn[1], mn[2], mn[3]);
+          *reinterpret_cast<float4 *>(o + 32) =
+              make_float4(mn[4], mn[5], mn[6], mn[7]);
+        }
+        const float wm = wide_warp_max(mn);
         if (lane == 0) wmax_at(cur ^ 1, r)[warp] = wm;
       }
       __syncthreads();  // the other buffer is complete; no test reads cur
@@ -477,17 +473,18 @@ cudaError_t launch_wide(const float *samples_t, const float *witnesses,
                         int rt, int bs, int spc, int dim,
                         cudaStream_t stream, long long *launched) {
   if (s_total == 0) return cudaSuccess;
-  const int piece = flood::wide_piece(dim);
-  const size_t smem = (((size_t)piece + 3) * dim +
-                       2 * (size_t)nr * MAX_GROUP_WARPS) * sizeof(float);
+  const size_t smem = stats_wide_smem(dim, nr);
   cudaError_t e = cudaFuncSetAttribute(
       flood_stats_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
+  if (e == cudaSuccess)
+    e = cudaFuncSetAttribute(flood_stats_wide,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             cudaSharedmemCarveoutMaxShared);
   if (e != cudaSuccess) return e;
-  flood_stats_wide<<<(unsigned)s_total, rt / SPT, smem, stream>>>(
+  flood_stats_wide<<<(unsigned)s_total, rt / 2, smem, stream>>>(
       samples_t, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, tile_hi,
-      ub2, blk_ptr, blk_chunks, sim_order, out, stats, nr, rt, bs, spc, dim,
-      piece);
+      ub2, blk_ptr, blk_chunks, sim_order, out, stats, nr, rt, bs, spc, dim);
   e = cudaGetLastError();
   if (e == cudaSuccess) ++*launched;
   return e;
@@ -503,15 +500,20 @@ const char *flood_stats_error_string(int code) {
 
 int flood_stats_sub() { return SUB; }
 
+// Dynamic shared memory of flood_stats_wide's CTA (the launch asks for it).
+long long flood_stats_wide_smem_bytes(int dim, int nr) {
+  return (long long)stats_wide_smem(dim, nr);
+}
+
 // Launch K3 on `stream`: one CTA per simplex row, CTA i on simplex
 // sim_order[i] (a permutation of the rows). `rt` must be a multiple of 128
 // and at most 512; `dim` at least 1; `samples` (S, NR, RT, dim) for 1-8
 // coordinates and coordinate-major, (S, NR, dim, RT), for more; `witnesses`
 // 16-byte aligned. The CTA's shared memory must hold, for 1-8 coordinates,
 // the simplex's running mins and tile maxima, (nr * rt + 8 * nr) floats
-// (and at DIM 8 the raw fetch buffer, SUB * 8 floats), and for more the
-// staged piece, centre, sample box and tile maxima, (wide_piece(dim) + 3) *
-// dim + 8 * nr floats.
+// (and at DIM 8 the raw fetch buffer, SUB * 8 floats), and for more
+// flood_stats_wide_smem_bytes: K1's wide staging without its raw buffer,
+// the sample box and the tile maxima, (2 * dim + 16 * nr) floats more.
 // *launched is set to the number of kernel launches enqueued without error
 // (0 when there is no simplex). Returns 0 or the CUDA error.
 int flood_stats_launch(const float *samples, const float *witnesses,

@@ -10,7 +10,9 @@ Past 8 coordinates (the kernels' runtime-width instances, whose plain
 versions run here): 9-D and 12-D clouds in grid and random mode, a 9-D 2x2
 mesh against one device, and K1's and K3's plain versions against the
 Pallas kernels in interpret mode on one block at 9 coordinates and, for
-K1, at 40, where a masked d2 overflows to +inf."""
+K1, at 40, where a masked d2 overflows to +inf; and the grounds of the bar
+that the card holds those instances to (two fp32 summation orders of dim
+terms lie within 2 * dim * 2**-24 * d2 of each other) at 9-64."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -193,3 +195,67 @@ def test_plain_k3_matches_pallas_k3_past_8_coordinates():
                          (cfs.COL_TILES, ks_j.COL_TILES)):
         np.testing.assert_array_equal(st_t[:, col_t], st_j[:, col_j])
     assert st_t[:, cfs.COL_TILES].sum() > 0
+
+
+@pytest.fixture
+def one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _all_pairs_operands(dim, seed=11):
+    """K1's operands for one block of 8 simplices, 128 samples each and one
+    chunk of 2,048 witnesses in [0, 1]^dim, built so that every pair is
+    computed: balls far larger than the cube, sub-chunk boxes that hold
+    every sample box (the tile test's gap is 0) and no nearest-vertex
+    bound. Returns the operands and the ball-local samples and witnesses."""
+    rng = np.random.default_rng(seed + dim)
+    S, rt = cf.BS, 128
+    w = rng.random((cf.WCHUNK, dim)).astype(np.float32)
+    c = np.full((S, dim), 0.5, np.float32)
+    x = (rng.random((S, 1, rt, dim)).astype(np.float32) - np.float32(0.5))
+    t = torch.from_numpy
+    subs = cf.WCHUNK // cf.SUB
+    ops = (t(x), t(w), torch.full((subs, dim), -1.0),
+           torch.full((subs, dim), 2.0), t(c),
+           torch.full((S,), 10.0 * dim), t(x.min(2)), t(x.max(2)),
+           torch.full((S, 1), float("inf")),
+           torch.tensor([0, 1], dtype=torch.int32),
+           torch.tensor([0], dtype=torch.int32))
+    yl = t(w)[None] - t(c)[:, None]  # (S, W, dim) ball-local, in float32
+    return ops, t(x)[:, 0], yl
+
+
+@pytest.mark.parametrize("dim", [9, 16, 40, 64])
+def test_fp32_summation_orders_meet_the_wide_bar(one_thread, dim):
+    """The bar the card holds K1's and K3's runtime-width instances to:
+    |d2 - d2_plain| <= 2 * dim * 2**-24 * d2. Over every (sample, witness)
+    pair of a block, the plain version's min d2 (products and sums rounded
+    one by one) and an emulation of the kernels' order (one FMA a
+    coordinate: float64 arithmetic rounded to float32 at each step) each lie
+    within dim * 2**-24 * d2 of the same sum of the same float32
+    differences taken in float64, so the two fp32 orders lie within twice
+    that of each other."""
+    ops, x, yl = _all_pairs_operands(dim)
+    out, stats = cf.flood_pairs_reference(*ops)
+    units, inball = cf.kernel_operations(stats)
+    S, rt = x.shape[:2]  # every simplex admits every sub-chunk, whole
+    assert units == S * cf.WCHUNK // cf.SUB and inball == S * cf.WCHUNK * rt
+    plain = out[:, 0].double()  # (S, rt)
+
+    exact = fma = None
+    for d in range(dim):
+        diff = yl[:, None, :, d] - x[:, :, None, d]  # float32, (S, rt, W)
+        sq = diff.double() ** 2  # exact: a float32 squared fits a double
+        exact = sq if exact is None else exact + sq
+        fma = (sq if fma is None else fma.double() + sq).float()
+    exact, fma = exact.amin(-1), fma.double().amin(-1)
+
+    bound = dim * 2.0**-24 * exact
+    assert bool(((plain - exact).abs() <= bound).all())
+    assert bool(((fma - exact).abs() <= bound).all())
+    assert bool(((plain - fma).abs() <= 2 * dim * 2.0**-24 * plain).all())
+    # the orders differ somewhere, so the test sees a real rounding gap
+    assert bool((plain != fma).any())
