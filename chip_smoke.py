@@ -39,8 +39,22 @@ check fails):
   simplex and balls that cut sub-chunks; every count exact and K3 == K1
   bit for bit; the reference's 5-D grid and 6-D random
   edge cases through
-  ``flood_complex`` on the card against the CPU run; K1 timed on a 200k
-  5-D cloud; the pair loop of every K1 and K3 instance read from the SASS.
+  ``flood_complex`` on the card against the CPU run; the pair loop of
+  every K1 and K3 instance read from the SASS.
+- few (K1's few-sample instances, tiles of 128 samples up to 384 samples
+  a simplex, a warp a tile): against their plain version at 3 and 5
+  coordinates with 1, 64, 126 and 256 samples a simplex (d2 within 1e-6,
+  inf in place, every count equal); K1 timed on a 200k 5-D cloud at 5
+  points per edge (126 samples a 5-simplex); random mode (num_rand 64 and
+  256, ``np.random.seed`` fixed) on the main path's 1M x 1k cloud through
+  flood_complex and persistence, with the launch counters set to 0 just
+  before each run and read just after, its stages fenced, each pass's K1
+  timed on its own operands and held against its plain version on two
+  whole blocks, and random mode against the dense engine on the 100k x
+  300 cut (within 1e-5). Bounds and issue floors count real sample rows
+  only; the launch's CTAs, derived occupancy, units and in-ball pairs on
+  real samples and on all slots are printed. ``--only few`` runs the build
+  and this phase alone.
 - float64: K2's double instance against its plain version on the
   many-chunks cloud and the 1M cheese (1000 landmarks), timed beside
   float32; ``flood_complex`` in float64 (dense engine) against the float32
@@ -123,6 +137,7 @@ PEAK_FP32 = 67e12
 PEAK_BYTES = 3.35e12
 # H100 SXM fp64 outside the tensor cores (NVIDIA data sheet, 700 W)
 PEAK_FP64 = 34e12
+L2_BYTES = 50e6  # H100 L2 cache (NVIDIA data sheet)
 FLOOD_OPS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add, 1 min per in-ball pair (3-D)
 # fp32 instructions K1 issues per in-ball pair: the inner loop of
 # flood_min_kernel<3> in SASS (cuobjdump -sass of build/flooder_tpu_torch/
@@ -144,6 +159,12 @@ K3_SPREAD_BLOCKS = 48
 WIDE_DIMS = (9, 12, 16, 37, 38, 40, 64)
 HIGH_DIMS = (5, 6, 8) + WIDE_DIMS
 DIM5_POINTS, DIM5_LANDMARKS, DIM5_PPE = 200_000, 64, 5  # K1 timed at 5-D
+# few phase: K1's few-sample instances (tiles of 128 samples, a warp a tile)
+# against their plain version on seeded operands of R samples a simplex,
+# and random mode on the main path's cloud (np.random.seed before each run)
+FEW_DIMS, FEW_R = (3, 5), (1, 64, 126, 256)
+FEW_NUM_RAND = (64, 256)
+FEW_WEIGHT_SEED = 0
 F64_LANDMARKS = 150  # the reference's test_float64 clouds: 3000 x 150
 F64_POINTS = 3000
 DENSE_POINTS, DENSE_LANDMARKS = 100_000, 300  # float64 and dense timing
@@ -479,9 +500,9 @@ def resident_ctas(regs, smem, threads):
 
 
 def flood_occupancy(ptxas_rows, kernel, threads, dyn_smem):
-    """(instance, shared bytes a CTA, resident CTAs and warps an SM) of the
-    flood kernels' instances at rt 512; ``dyn_smem(dim)`` is the dynamic
-    shared memory a CTA asks for."""
+    """(instance, shared bytes a CTA, resident CTAs and warps an SM) of a
+    flood kernel's instances at ``threads`` a CTA; ``dyn_smem(dim)`` is the
+    dynamic shared memory a CTA asks for."""
     rows = []
     for name, regs, _, smem in ptxas_rows:
         if name.startswith(kernel + "<"):
@@ -561,6 +582,32 @@ def flood_bound_ms(operands, inball_pairs):
     t_bytes = (in_bytes + out_bytes) / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else (
         "bytes")
+
+
+def real_pairs(stats, nr, rt, r_count):
+    """K1's in-ball pairs on real sample rows: the stats count every slot of
+    a tile, and the slots past ``r_count`` repeat the last real row."""
+    per_tile = stats[:, 1].reshape(-1, nr).sum(0).tolist()
+    return sum(p // rt * min(rt, r_count - r * rt)
+               for r, p in enumerate(per_tile))
+
+
+def k1_launch_shape(ops):
+    """(instance, CTAs, threads a CTA) of K1's launch on these operands:
+    the few-sample instance for tiles of FEW_RT samples at 1-8
+    coordinates, else the instance for tiles of up to 512 (a checkout
+    without the few-sample instances launches the latter)."""
+    from flooder_tpu_torch.ops import cuda_flood
+
+    s_total, nr, rt, dim = ops[0].shape
+    n_blk = s_total // cuda_flood.BS
+    if dim > cuda_flood.KERNEL_MAX_DIM:
+        return "flood_min_wide", n_blk * nr, rt // 2
+    if rt == getattr(cuda_flood, "FEW_RT", None):
+        warps = cuda_flood.FEW_WARPS
+        return (f"flood_min_few<{dim}>",
+                -(-n_blk * cuda_flood.BS * nr // warps), 32 * warps)
+    return f"flood_min_kernel<{dim}>", n_blk * nr, rt // 4
 
 
 def sorted_bars(d):
@@ -979,11 +1026,13 @@ def wide_phase(seed):
         err = check_same_greedy(P, a.cpu().numpy(), b.cpu().numpy(), 0)
         peak = PEAK_FP64 if dt == "float64" else PEAK_FP32
         t_ops = 3 * dim * visits * cuda_fps.FPS_CHUNK / peak
-        t_bytes = (P.numel() * P.element_size() + N_LANDMARKS * 4) / (
-            PEAK_BYTES)
+        # a cloud larger than L2 is read from HBM at every chunk visit
+        read_gb = visits * cuda_fps.FPS_CHUNK * dim * P.element_size() / 1e9
+        cloud = P.numel() * P.element_size()
+        streamed = 1e9 * read_gb if cloud > L2_BYTES else cloud
+        t_bytes = (streamed + N_LANDMARKS * 4) / PEAK_BYTES
         bound = 1e3 * max(t_ops, t_bytes)
         by = "operations" if t_ops >= t_bytes else "bytes"
-        read_gb = visits * cuda_fps.FPS_CHUNK * dim * P.element_size() / 1e9
         out["fps_full"][f"{dim}-{dt}"] = dict(
             ms=ms, plain_ms=plain_ms, bound_ms=bound, bound_by=by,
             chunk_visits=visits, max_abs_err=err)
@@ -993,7 +1042,10 @@ def wide_phase(seed):
             f"({1e3 * ms / (N_LANDMARKS - 1):.2f} us a step), {visits} chunk "
             f"visits of {WIDE_POINTS // cuda_fps.FPS_CHUNK + 1} chunks x "
             f"{N_LANDMARKS - 1} steps ({read_gb:.1f} GB of coordinates "
-            f"streamed); plain {plain_ms:.1f} ms; bound {bound:.4f} ms ({by})")
+            f"streamed); plain {plain_ms:.1f} ms; bound {bound:.4f} ms ({by}: "
+            f"operations {1e3 * t_ops:.4f} ms, bytes {1e3 * t_bytes:.4f} ms, "
+            f"the visits' bytes where the cloud passes the "
+            f"{L2_BYTES / 1e6:.0f} MB L2)")
         del P, a, b
 
     # ---- K3's runtime-width instance beside K1's, timed -----------------
@@ -1210,6 +1262,213 @@ def wide_phase(seed):
     return out
 
 
+def few_phase(X=None):
+    """K1's few-sample instances (tiles of 128 samples, a warp a tile): held
+    against their plain version on seeded operands at FEW_DIMS x FEW_R,
+    timed on a 200k 5-D cloud, and driven through random mode on the main
+    path's 1M x 1k cloud (``X``, made here when None) with the launch
+    counters set to 0 just before each run and read just after, each pass's
+    K1 held against its plain version on whole blocks, and random mode
+    against the dense engine on the 100k x 300 cut. Bounds and issue floors
+    count real sample rows only. Returns the numbers of the kernels line."""
+    import torch
+
+    import flooder_tpu_torch as ft
+    from flooder_tpu_torch.core import _grid_host
+    from flooder_tpu_torch.native import build
+    from flooder_tpu_torch.ops import cuda_flood, cuda_fps
+    from flooder_tpu_torch.tools.scene import block_slice
+    from flooder_tpu_torch.utils import stagetimer
+
+    dev = torch.device("cuda")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    clock_mhz = float(card_line("clocks.max.sm").split()[0])
+    loops = {r[0]: r[2] for r in sass_pair_loops(build.cuda_library("flood"))
+             or () if r[2]}
+    ptxas = {row[0]: row[1:] for text in build.BUILD_LOG.values()
+             for row in build.ptxas_kernels(text)}
+    few_count = hasattr(cuda_flood, "FEW_LAUNCHES")
+
+    def launch_text(ops, stats, r_count):
+        """The launch's shape, work (real and padded in-ball pairs), bound
+        and issue floor, both on real samples."""
+        inst, ctas, threads = k1_launch_shape(ops)
+        s_total, nr, rt, dim = ops[0].shape
+        units, padded = cuda_flood.kernel_operations(stats)
+        real = real_pairs(stats, nr, rt, r_count)
+        bound, by = flood_bound_ms(ops, real)
+        instr = loops.get(inst, 2 * dim + 1)
+        floor = issue_floor_ms(real, sms, clock_mhz, instr)
+        occ = "not derived (no ptxas lines in this process)"
+        if inst in ptxas:
+            regs, _, smem = ptxas[inst]
+            if inst == "flood_min_kernel<8>":
+                smem += cuda_flood.SUB * 8 * 4  # its dynamic raw buffer
+            per_sm = resident_ctas(regs, smem, threads)
+            occ = f"{per_sm} CTAs, {per_sm * threads // 32} warps an SM"
+        text = (f"{inst}, {ctas} CTAs of {threads} threads ({nr} x {rt} "
+                f"slots a simplex for {r_count} samples; derived occupancy "
+                f"{occ}), "
+                f"{units} units, {real} in-ball pairs on real samples "
+                f"({padded} on all slots), bound {bound:.4f} ms ({by}), "
+                f"issue floor {floor:.4f} ms ({instr:g} fp32 instructions a "
+                "pair, real samples)")
+        return dict(instance=inst, ctas=ctas, units=units, inball_real=real,
+                    inball_slots=padded, bound_ms=bound, bound_by=by,
+                    issue_floor_ms=floor), text
+
+    out = {"seeded_max_abs_err": {}, "random_mode": {}, "cut_vs_dense": {}}
+    # ---- seeded operands against the plain version -----------------------
+    for dim in FEW_DIMS:
+        for r_count in FEW_R:
+            ops = seeded_flood_operands(dim, dev, r_count=r_count)
+            out_k, stats_k = cuda_flood.flood_min(*ops)
+            out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
+            what = f"K1 at {dim} coordinates, {r_count} samples a simplex"
+            err = flood_d2_diff(out_k, out_p, what)
+            if not torch.equal(stats_k, stats_p):
+                raise AssertionError(f"{what}: counts differ from the plain "
+                                     "version's")
+            out["seeded_max_abs_err"][f"{dim}-{r_count}"] = err
+            n_inf = int((out_p >= cuda_flood._MASKED_D2).sum())
+            log(f"few {what}: max |d2 diff| {err} against the plain "
+                f"version, inf in the same places ({n_inf}), every count "
+                f"equal; {launch_text(ops, stats_k, r_count)[1]}")
+    del ops, out_k, stats_k, out_p, stats_p
+
+    # ---- K1 timed on a 5-D cloud ------------------------------------------
+    X5 = torch.rand(DIM5_POINTS, 5, device=dev,
+                    generator=torch.Generator(dev).manual_seed(5))
+    L5 = ft.generate_landmarks(X5, DIM5_LANDMARKS, start_idx=0)
+    ops5, n5 = top_pass_operands(cuda_flood.CudaFloodEngine(X5), L5,
+                                 DIM5_PPE)
+    ms5 = cuda_ms(lambda: cuda_flood.flood_min(*ops5), 5)
+    _, stats5 = cuda_flood.flood_min(*ops5)
+    rec5, text5 = launch_text(ops5, stats5, _grid_host(DIM5_PPE, 5)[0].shape[0])
+    out["k1_5d"] = dict(ms=ms5, simplices=n5, pairs=ops5[-1].numel(), **rec5)
+    log(f"few K1<5> at {DIM5_POINTS} x {DIM5_LANDMARKS}, ppe {DIM5_PPE} ({n5} "
+        f"5-simplices, {ops5[-1].numel()} pairs): kernel {ms5:.3f} ms (mean "
+        f"of 5 after a warm-up); {text5}")
+    del X5, L5, ops5, stats5
+
+    # ---- random mode at the main path's size --------------------------------
+    if X is None:
+        X = ft.generate_swiss_cheese_points(N_POINTS, k=6, seed=42,
+                                            device=dev)[0]
+    k1 = cuda_flood.flood_min
+    for num_rand in FEW_NUM_RAND:
+        calls = []
+
+        def flood_min_kept(*ops):
+            res = k1(*ops)
+            calls.append((ops, res))
+            return res
+
+        cuda_fps.LAUNCHES = cuda_flood.LAUNCHES = 0
+        if few_count:
+            cuda_flood.FEW_LAUNCHES = 0
+        np.random.seed(FEW_WEIGHT_SEED)
+        torch.cuda.synchronize()
+        buf = io.StringIO()
+        stagetimer.ENABLED, cuda_flood.flood_min = True, flood_min_kept
+        try:
+            with contextlib.redirect_stderr(buf):
+                t0 = time.perf_counter()
+                stree = ft.flood_complex(X, N_LANDMARKS, num_rand=num_rand,
+                                         points_per_edge=None,
+                                         return_simplex_tree=True)
+                t1 = time.perf_counter()
+                with stagetimer.stage("persistence"):
+                    stree.compute_persistence()
+                    diagrams = [stree.persistence_intervals_in_dimension(i)
+                                for i in range(3)]
+                torch.cuda.synchronize()
+                t2 = time.perf_counter()
+        finally:
+            stagetimer.ENABLED, cuda_flood.flood_min = False, k1
+        launches = {"fps": cuda_fps.LAUNCHES, "flood": cuda_flood.LAUNCHES}
+        if few_count:
+            launches["flood_few"] = cuda_flood.FEW_LAUNCHES
+        log(f"few random mode num_rand {num_rand} launches (one run): "
+            f"{launches}")
+        if (launches["fps"], launches["flood"], len(calls)) != (1, 4, 4) or (
+                few_count and launches["flood_few"] != 4):
+            raise AssertionError("random mode must launch K2 once and K1's "
+                                 f"few-sample instances once a pass: {launches}")
+        split = {}
+        for name, sec in re.findall(
+                r"^\[flooder-timing\] (.+): ([0-9.]+)s$", buf.getvalue(),
+                flags=re.M):
+            split[name] = round(split.get(name, 0.0) + float(sec), 4)
+        vals = np.concatenate(stree._filt)
+        if not np.isfinite(vals).all():
+            raise AssertionError(f"random mode {num_rand}: non-finite values")
+        if stree.make_filtration_non_decreasing():
+            raise AssertionError(f"random mode {num_rand}: not monotone")
+        if int(np.isinf(diagrams[0][:, 1]).sum()) != 1:
+            raise AssertionError(f"random mode {num_rand}: H0 must have one "
+                                 "essential class")
+        bars = [len(d) for d in diagrams]
+        passes = []
+        for d, (ops, (out_k, stats_k)) in enumerate(calls):
+            ms = cuda_ms(lambda: k1(*ops), 5)
+            rec, text = launch_text(ops, stats_k, num_rand)
+            # K1's plain version on whole blocks: the longest and a middle one
+            lens = (ops[-2][1:] - ops[-2][:-1]).cpu().numpy()
+            by_len = np.argsort(-lens, kind="stable")
+            blocks = [int(by_len[0]), int(by_len[int(np.count_nonzero(lens)) // 2])]
+            sliced, rows = block_slice(ops, blocks)
+            out_p, stats_p = cuda_flood.flood_pairs_reference(*sliced)
+            nr = ops[0].shape[1]
+            stats_rows = stats_k.reshape(-1, nr, 2)[torch.as_tensor(
+                blocks, device=dev)].reshape(-1, 2)
+            what = f"random mode {num_rand}, pass {d}, blocks {blocks}"
+            if not torch.equal(stats_rows, stats_p):
+                raise AssertionError(f"{what}: counts differ from the plain "
+                                     "version's")
+            err = flood_d2_diff(out_k[rows], out_p, what)
+            passes.append(dict(dim=d, simplices=int(stree._verts[d].shape[0]),
+                               ms=ms, max_abs_err_on_blocks=err, **rec))
+            log(f"few random mode num_rand {num_rand}, pass {d} "
+                f"({passes[-1]['simplices']} simplices): kernel {ms:.3f} ms "
+                f"(mean of 5 after a warm-up, the pass's own operands); "
+                f"{text}; plain version on blocks {blocks} "
+                f"({sliced[-1].numel()} pairs): max |d2 diff| {err}, every "
+                "count equal")
+        out["random_mode"][str(num_rand)] = dict(
+            passes=passes, launches=launches, complex_s=t1 - t0,
+            persistence_s=t2 - t1, stage_split_s=split, bars=bars)
+        log(f"few random mode {N_POINTS} x {N_LANDMARKS}, num_rand "
+            f"{num_rand}: complex {[int(v.shape[0]) for v in stree._verts]} "
+            f"simplices, finite and monotone, one essential H0 class; "
+            f"diagram bars {bars}; flood_complex {t1 - t0:.4f}s, persistence "
+            f"{t2 - t1:.4f}s (host clock, fenced stages); K1 "
+            f"{sum(p['ms'] for p in passes):.3f} ms over the passes")
+        log(f"few random mode num_rand {num_rand} stage split (s, fenced; "
+            f"nested stages overlap): {json.dumps(split)}")
+        del calls, stree, diagrams, ops, out_k, stats_k, sliced, rows
+    del X
+
+    # ---- the 100k x 300 cut against the dense engine ------------------------
+    C = ft.generate_swiss_cheese_points(DENSE_POINTS, k=6, seed=42,
+                                        device=dev)[0]
+    for num_rand in FEW_NUM_RAND:
+        res = {}
+        for route, kw in (("kernel", {}), ("dense", {"use_pallas": False})):
+            np.random.seed(FEW_WEIGHT_SEED)
+            res[route] = complex_dict(C, DENSE_LANDMARKS, "cuda",
+                                      num_rand=num_rand, points_per_edge=None,
+                                      **kw)
+        err = complex_diff(res["kernel"], res["dense"], 1e-5,
+                           f"random mode {num_rand} on the cut: "
+                           "use_pallas=False against the kernel route")
+        out["cut_vs_dense"][str(num_rand)] = err
+        log(f"few random mode num_rand {num_rand} on the cut {DENSE_POINTS} x "
+            f"{DENSE_LANDMARKS}: K1 route == the dense engine on "
+            f"{len(res['kernel'])} simplices, max |diff| {err}")
+    return out
+
+
 def main(argv=None):
     import argparse
 
@@ -1218,6 +1477,11 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42,
                     help="seed of the wide phase's uniform clouds")
+    ap.add_argument("--only", choices=["few"],
+                    help="build and run this phase alone, and print its "
+                    "numbers as the last line (no result line): from the "
+                    "root of another checkout through runpy, it times that "
+                    "checkout's K1 on the same inputs")
     args = ap.parse_args(argv)
     t_start = time.perf_counter()
 
@@ -1246,20 +1510,24 @@ def main(argv=None):
     log(f"kernel build: {time.perf_counter() - t0:.2f}s wall for flood, fps, "
         f"flood_stats in parallel; per source {build.BUILD_SECONDS}")
     raw8 = cuda_flood.SUB * 8 * 4  # K1's and K3's raw buffer at DIM 8
-    # (kernel, threads a CTA, dynamic shared bytes at rt 512 and K3's nr 10)
+    # (rt, kernel, threads a CTA, dynamic shared bytes; K3 at nr 10); an
+    # older checkout (--only few from its root) has no few-sample instances
+    few_threads = 32 * getattr(cuda_flood, "FEW_WARPS", 1)
     occupancy_of = {
-        "flood": ("flood_min_kernel", 128, lambda d: raw8 if d == 8 else 0),
-        "flood_stats": ("flood_stats_kernel", 256, lambda d: (
-            10 * 512 + 8 * 10) * 4 + (raw8 if d == 8 else 0)),
+        "flood": [(512, "flood_min_kernel", 128,
+                   lambda d: raw8 if d == 8 else 0),
+                  (128, "flood_min_few", few_threads, lambda d: 0)],
+        "flood_stats": [(512, "flood_stats_kernel", 256, lambda d: (
+            10 * 512 + 8 * 10) * 4 + (raw8 if d == 8 else 0))],
     }
     for name, text in build.BUILD_LOG.items():
         rows = build.ptxas_kernels(text)
         log(f"ptxas {name}: (kernel, registers, spill-store bytes, static "
             f"smem bytes) {rows}")
-        if name in occupancy_of:
-            log(f"occupancy of {name} at rt 512 (K3 at nr 10), derived from "
-                "ptxas: (kernel, shared bytes a CTA, CTAs an SM, warps an SM) "
-                f"{flood_occupancy(rows, *occupancy_of[name])}")
+        for rt, *of in occupancy_of.get(name, ()):
+            log(f"occupancy of {of[0]} at rt {rt} (K3 at nr 10), derived "
+                "from ptxas: (kernel, shared bytes a CTA, CTAs an SM, warps "
+                f"an SM) {flood_occupancy(rows, *of)}")
     log(f"occupancy of the runtime-width instances, derived from ptxas: "
         f"{wide_occupancy(build)}")
     for name in ("flood", "flood_stats"):
@@ -1274,6 +1542,12 @@ def main(argv=None):
     t0 = time.perf_counter()
     build.load_persistence()
     log(f"native persistence build: {time.perf_counter() - t0:.2f}s")
+    if args.only == "few":
+        t_phase = time.perf_counter()
+        few = few_phase()
+        log(f"few phase: {time.perf_counter() - t_phase:.1f}s")
+        print(json.dumps({"few": few}), flush=True)
+        return 0
 
     # ---- K2 against its plain version -------------------------------------
     P = ft.generate_swiss_cheese_points(200_000, k=6, seed=7, device=dev)[0]
@@ -1701,24 +1975,12 @@ def main(argv=None):
         log(f"{case} {shape[0]} x {n_lms}: card == CPU on {len(res['cpu'])} "
             f"simplices (every dimension to {shape[1]}), max |diff| "
             f"{edge_err[case]}")
-    # K1 timed on a 5-D cloud
-    X5 = torch.rand(DIM5_POINTS, 5, device=dev,
-                    generator=torch.Generator(dev).manual_seed(5))
-    L5 = ft.generate_landmarks(X5, DIM5_LANDMARKS, start_idx=0)
-    ops5, n5 = top_pass_operands(cuda_flood.CudaFloodEngine(X5), L5,
-                                 DIM5_PPE)
-    k1_5d_ms = cuda_ms(lambda: cuda_flood.flood_min(*ops5), 5)
-    _, stats5 = cuda_flood.flood_min(*ops5)
-    units5, inball5 = cuda_flood.kernel_operations(stats5)
-    k1_5d_bound, k1_5d_by = flood_bound_ms(ops5, inball5)
-    s5, nr5, rt5 = ops5[0].shape[:3]
-    log(f"K1<5> at {DIM5_POINTS} x {DIM5_LANDMARKS}, ppe {DIM5_PPE} "
-        f"({n5} 5-simplices, {nr5} x {rt5} samples a simplex, "
-        f"{ops5[-1].numel()} pairs, {units5} units, {inball5} in-ball pairs, "
-        f"{s5 // cuda_flood.BS * nr5} CTAs of {rt5 // 4} threads): kernel "
-        f"{k1_5d_ms:.3f} ms, bound {k1_5d_bound:.4f} ms ({k1_5d_by})")
-    del X5, L5, ops5, stats5
     log(f"dims phase: {time.perf_counter() - t_phase:.1f}s")
+
+    # ---- few: K1's few-sample instances and random mode at full size ------
+    t_phase = time.perf_counter()
+    few = few_phase(X)
+    log(f"few phase: {time.perf_counter() - t_phase:.1f}s")
 
     # ---- float64: K2's double instance and the dense engine -----------------
     t_phase = time.perf_counter()
@@ -1842,8 +2104,10 @@ def main(argv=None):
             "ms_at_100k_x_300": k1_small_ms,
             "bound_ms_at_100k_x_300": k3_small_bound,
             "max_abs_err_by_dim": {str(d): e for d, e in k1_dim_err.items()},
-            "ms_5d_200k_x_64": k1_5d_ms, "bound_ms_5d_200k_x_64": k1_5d_bound,
-            "bound_by_5d": k1_5d_by,
+            "ms_5d_200k_x_64": few["k1_5d"]["ms"],
+            "bound_ms_5d_200k_x_64": few["k1_5d"]["bound_ms"],
+            "bound_by_5d": few["k1_5d"]["bound_by"],
+            "few_samples": few,
             "mesh": mesh,
             "wide_10d_path": wide["k1"],
             "wide_10d_path_launches": wide["path"]["launches"]["flood"],

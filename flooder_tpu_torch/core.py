@@ -259,7 +259,9 @@ def flood_complex(
         points: (N, d) float32 or float64 witnesses (numpy array or
             tensor).
         landmarks: a landmark count (FPS-sampled from ``points``) or
-            explicit (L, d) landmark coordinates.
+            explicit (L, d) landmark coordinates. Tensor landmarks must
+            lie on the device of a tensor cloud, else ``RuntimeError`` as
+            in flooder_tpu; numpy inputs carry no device.
         max_dimension: top simplex dimension (default: ambient dimension).
         points_per_edge: grid resolution per edge (grid mode, default 30).
         num_rand: if set, this many random samples per simplex instead of
@@ -304,6 +306,9 @@ def flood_complex(
                 f"{mesh.first_device}"
             )
 
+    # the device of the caller's cloud (None for numpy, which has none)
+    points_device = (points.device if isinstance(points, torch.Tensor)
+                     else None)
     points = as_tensor(points, device=device)
     if points.dtype not in SUPPORTED_DTYPES:
         raise TypeError(f"dtype ({points.dtype}) not supported")
@@ -335,6 +340,12 @@ def flood_complex(
         if landmarks_in_cloud is None:
             landmarks_in_cloud = True
     else:
+        if (isinstance(landmarks, torch.Tensor) and points_device is not None
+                and landmarks.device != points_device):
+            raise RuntimeError(
+                f"landmarks.device ({landmarks.device}) != points.device "
+                f"({points_device})"
+            )
         landmarks = as_tensor(landmarks, device=points.device)
     tight = bool(landmarks_in_cloud)
     if landmarks.dtype != points.dtype:

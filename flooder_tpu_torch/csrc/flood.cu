@@ -66,6 +66,25 @@
 // float4 (the pair loop reads it with two LDS.128), and at 8 the raw fetch
 // buffer moves to dynamic shared memory; the code for 1-4 is unchanged.
 //
+// Few samples a simplex (random mode, coarse grids): the caller's tiles
+// hold FEW_RT = 128 samples up to 384 samples a simplex, and those tiles
+// take flood_min_few<DIM> (flood_min_few_launch). Above, a CTA of rt / 4
+// threads would be one to three warps that walk a block's 8 simplices one
+// after another, with shared memory sized for 512 witnesses: few warps an
+// SM, each a serial chain of list tests, fetches and barriers. Here each
+// warp owns one (simplex, tile) and shares nothing: FEW_WARPS independent
+// warps a CTA, no CTA barrier, so the 8 simplices of a block run at once
+// and an SM holds as many warps as its registers allow. A warp tests 32
+// list positions at once (a lane each, ball and tile-box tests as in the
+// plain version), and stages an admitted sub-chunk a 128-witness segment at
+// a time into its own shared memory (4 witnesses a lane, cp.async,
+// compaction by ballot), fetching the next segment, or the next ball
+// candidate's first, while it computes one. Each (simplex, tile) keeps its
+// walk, tests, running max and pair arithmetic (flood_common.cuh), so the
+// output equals flood_min_kernel's bit for bit and the counts are the
+// plain version's; a warp adds its counts to its (block, tile) row with
+// atomics on stats, which the launch zeroes first.
+//
 // 9 and more coordinates: one runtime-width instance, flood_min_wide (the
 // forms in flood_common.cuh). The same grid, launch order, work-list walk
 // and tests, on a coordinate-major copy of the samples, with rt / 2 threads
@@ -263,6 +282,169 @@ cudaError_t launch(const float *samples, const float *witnesses,
   return e;
 }
 
+// Few samples a simplex: tiles of FEW_RT samples, one warp a (simplex,
+// tile), FEW_WARPS independent warps a CTA (see the note at the top).
+constexpr int FEW_RT = 32 * SPT;
+constexpr int FEW_WARPS = 2;
+
+template <int DIM>
+__global__ void __launch_bounds__(32 * FEW_WARPS) flood_min_few(
+    const float *__restrict__ samples,    // (S, NR, FEW_RT, DIM) ball-local
+    const float *__restrict__ witnesses,  // (W, DIM) kd-ordered, 16B-aligned
+    const float *__restrict__ sub_lo,     // (W / SUB, DIM) sub-chunk boxes
+    const float *__restrict__ sub_hi,
+    const float *__restrict__ centers,  // (S, DIM)
+    const float *__restrict__ radii,    // (S,)
+    const float *__restrict__ tile_lo,  // (S, NR, DIM) ball-local
+    const float *__restrict__ tile_hi,
+    const float *__restrict__ ub2,        // (S, NR)
+    const int *__restrict__ blk_ptr,      // (n_blk + 1,) CSR offsets
+    const int *__restrict__ blk_chunks,   // chunk ids, nearest first
+    const int *__restrict__ cta_order,    // (n_blk,) blocks in launch order
+    float *__restrict__ out,              // (S, NR, FEW_RT) min d^2
+    unsigned long long *__restrict__ stats,  // (n_blk * NR, 2), zeroed
+    int n_items, int nr, int bs, int spc) {
+  // each warp's own raw segment (cp.async target, read back only by the
+  // lane that fetched it) and its compacted segment
+  using namespace flood;
+  __shared__ __align__(16) float raw_all[FEW_WARPS][SEGW * DIM];
+  __shared__ Staged<DIM> wsh_all[FEW_WARPS][SEGW];
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  // work items in launch order: blocks as cta_order lists them, then the
+  // block's simplices, then their tiles
+  const int item = blockIdx.x * FEW_WARPS + warp;
+  if (item >= n_items) return;
+  const int per_blk = bs * nr;
+  const int b = cta_order[item / per_blk];
+  const int si = item % per_blk / nr, r = item % nr;
+  float *raw = raw_all[warp];
+  Staged<DIM> *wsh = wsh_all[warp];
+
+  const int s = b * bs + si;
+  const size_t tile = (size_t)s * nr + r;
+  float c[DIM], tlo[DIM], thi[DIM];
+#pragma unroll
+  for (int d = 0; d < DIM; ++d) {
+    c[d] = centers[(size_t)s * DIM + d];
+    tlo[d] = tile_lo[tile * DIM + d];
+    thi[d] = tile_hi[tile * DIM + d];
+  }
+  const float rad = radii[s];
+  const float r2 = __fmul_rn(rad, rad);
+  const float ub = ub2[tile];
+  float x[SPT][DIM], acc[SPT];
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) {
+#pragma unroll
+    for (int d = 0; d < DIM; ++d)
+      x[k][d] = samples[(tile * FEW_RT + lane + 32 * k) * DIM + d];
+    acc[k] = CUDART_INF_F;
+  }
+
+  // The walk, 32 list positions at a time: lane l takes position base + l
+  // (sub-chunk n % spc of the list's chunk n / spc), tests it against the
+  // ball (skip 1) and, where it passes, computes its gap to the tile's box
+  // for skip 2. `todo` holds the lanes whose sub-chunk passed and is ahead.
+  const int c0 = blk_ptr[b];
+  const int npos = (blk_ptr[b + 1] - c0) * spc;
+  int base = -32, lsub = 0;
+  float lgap = 0.f;
+  unsigned todo = 0;
+  auto next_ball = [&](float &g2) -> int {
+    while (todo == 0) {
+      base += 32;
+      if (base >= npos) return -1;
+      const int n = base + lane;
+      bool pass = false;
+      if (n < npos) {
+        lsub = blk_chunks[c0 + n / spc] * spc + n % spc;
+        pass = near2<DIM>(sub_lo, sub_hi, lsub, c) <= r2;  // skip 1
+        if (pass) lgap = gap2<DIM>(sub_lo, sub_hi, lsub, c, tlo, thi);
+      }
+      todo = __ballot_sync(FULL, pass);
+    }
+    const int l = __ffs(todo) - 1;
+    todo &= todo - 1;
+    g2 = __shfl_sync(FULL, lgap, l);
+    return __shfl_sync(FULL, lsub, l);
+  };
+
+  unsigned long long units = 0, inball = 0;
+  float pm = CUDART_INF_F;  // the tile's max of its running mins
+  float cgap = 0.f;         // cand's gap to the tile's box
+  bool fetched = false;     // cand's first segment is on its way into raw
+  int cand = next_ball(cgap);
+  while (cand >= 0) {
+    if (!(cgap <= fminf(pm, ub))) {  // skip 2
+      cand = next_ball(cgap);
+      fetched = false;
+      continue;
+    }
+    // an admitted unit, a segment at a time; each segment's successor (the
+    // next segment, or the next ball candidate's first) is fetched while it
+    // computes
+    if (!fetched) fetch_segment<DIM>(raw, witnesses, cand, 0, lane);
+    int total = 0, nxt = -1;
+    float ngap = 0.f;
+    for (int seg = 0; seg < NSEG; ++seg) {
+      const int n = stage_segment<DIM>(raw, c, r2, wsh, lane);
+      if (seg + 1 < NSEG)
+        fetch_segment<DIM>(raw, witnesses, cand, seg + 1, lane);
+      else if ((nxt = next_ball(ngap)) >= 0)
+        fetch_segment<DIM>(raw, witnesses, nxt, 0, lane);
+      __syncwarp();  // the compacted segment published
+      min_over_segment<DIM, SPT>(wsh, n, x, acc);
+      __syncwarp();  // its readers are done
+      total += n;
+    }
+    if (total == 0) fold_masked<DIM, SPT>(x, acc);
+    units += 1;
+    inball += total;
+    pm = acc[0];
+#pragma unroll
+    for (int k = 1; k < SPT; ++k) pm = fmaxf(pm, acc[k]);
+    for (int off = 16; off > 0; off >>= 1)
+      pm = fmaxf(pm, __shfl_xor_sync(FULL, pm, off));
+    cand = nxt;
+    cgap = ngap;
+    fetched = true;
+  }
+  cp_async_wait_all();  // a rejected candidate's segment may be in flight
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) out[tile * FEW_RT + lane + 32 * k] = acc[k];
+  if (lane == 0) {
+    const size_t row = (size_t)b * nr + r;
+    atomicAdd(stats + 2 * row, units);
+    atomicAdd(stats + 2 * row + 1, inball * FEW_RT);
+  }
+}
+
+template <int DIM>
+cudaError_t launch_few(const float *samples, const float *witnesses,
+                       const float *sub_lo, const float *sub_hi,
+                       const float *centers, const float *radii,
+                       const float *tile_lo, const float *tile_hi,
+                       const float *ub2, const int *blk_ptr,
+                       const int *blk_chunks, const int *cta_order, float *out,
+                       long long *stats, int n_blk, int nr, int bs, int spc,
+                       cudaStream_t stream, long long *launched) {
+  const long long items = (long long)n_blk * bs * nr;
+  if (items == 0) return cudaSuccess;
+  cudaError_t e = cudaMemsetAsync(
+      stats, 0, 2 * sizeof(long long) * (size_t)n_blk * nr, stream);
+  if (e != cudaSuccess) return e;
+  const long long ctas = (items + FEW_WARPS - 1) / FEW_WARPS;
+  flood_min_few<DIM><<<(unsigned)ctas, 32 * FEW_WARPS, 0, stream>>>(
+      samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, tile_hi,
+      ub2, blk_ptr, blk_chunks, cta_order, out,
+      reinterpret_cast<unsigned long long *>(stats), (int)items, nr, bs,
+      spc);
+  e = cudaGetLastError();
+  if (e == cudaSuccess) ++*launched;
+  return e;
+}
+
 // The runtime-width instance (9 and more coordinates): see the note at the
 // top and flood_common.cuh.
 constexpr int WIDE_THREADS = MAX_RT / 2;
@@ -439,6 +621,9 @@ const char *flooder_cuda_error_string(int code) {
 
 int flood_sub() { return SUB; }
 
+// Warps (work items) of a few-sample CTA.
+int flood_few_warps() { return FEW_WARPS; }
+
 // Dynamic shared memory of flood_min_wide's CTA at `dim` coordinates (the
 // launch asks for it).
 long long flood_wide_smem_bytes(int dim) {
@@ -490,6 +675,43 @@ int flood_min_launch(const float *samples, const float *witnesses,
                                 rt, bs, subs_per_chunk, dim, s, launched);
   }
 #undef FLOOD_MIN_LAUNCH
+  return static_cast<int>(e);
+}
+
+// Launch K1's few-sample instances on `stream`: as flood_min_launch, for
+// tiles of FEW_RT samples (`rt` must be FEW_RT) at 1-8 coordinates, one
+// warp a (simplex, tile). `stats` is zeroed on the stream before the
+// launch adds each tile's counts to its row.
+int flood_min_few_launch(const float *samples, const float *witnesses,
+                         const float *sub_lo, const float *sub_hi,
+                         const float *centers, const float *radii,
+                         const float *tile_lo, const float *tile_hi,
+                         const float *ub2, const int *blk_ptr,
+                         const int *blk_chunks, const int *cta_order,
+                         float *out, long long *stats, int n_blk, int nr,
+                         int rt, int dim, int bs, int subs_per_chunk,
+                         void *stream, long long *launched) {
+  *launched = 0;
+  if (rt != FEW_RT || reinterpret_cast<uintptr_t>(witnesses) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define FLOOD_MIN_FEW_LAUNCH(D)                                              \
+  launch_few<D>(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, \
+                tile_hi, ub2, blk_ptr, blk_chunks, cta_order, out, stats,    \
+                n_blk, nr, bs, subs_per_chunk, s, launched)
+  cudaError_t e;
+  switch (dim) {
+    case 1: e = FLOOD_MIN_FEW_LAUNCH(1); break;
+    case 2: e = FLOOD_MIN_FEW_LAUNCH(2); break;
+    case 3: e = FLOOD_MIN_FEW_LAUNCH(3); break;
+    case 4: e = FLOOD_MIN_FEW_LAUNCH(4); break;
+    case 5: e = FLOOD_MIN_FEW_LAUNCH(5); break;
+    case 6: e = FLOOD_MIN_FEW_LAUNCH(6); break;
+    case 7: e = FLOOD_MIN_FEW_LAUNCH(7); break;
+    case 8: e = FLOOD_MIN_FEW_LAUNCH(8); break;
+    default: e = cudaErrorInvalidValue;
+  }
+#undef FLOOD_MIN_FEW_LAUNCH
   return static_cast<int>(e);
 }
 

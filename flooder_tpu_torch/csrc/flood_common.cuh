@@ -28,7 +28,10 @@
 // (min_over_staged) runs over the in-ball count rounded up to UNROLL, so
 // padding slots hold out-of-ball witnesses, and a sub-chunk with none in
 // the ball folds in the one value such a witness gives: min is exact, so
-// the result is the min over all SUB witnesses bit for bit.
+// the result is the min over all SUB witnesses bit for bit. K1's few-sample
+// instances stage one segment at a time (fetch_segment, stage_segment) with
+// the same compaction (compact_segment) and inner loop (min_over_segment),
+// so their output equals the other instances' bit for bit.
 //
 // Runtime width (9 and more coordinates; the wide_* forms at the end). The
 // pair loop is a register tile shaped like a matrix product whose inner
@@ -228,6 +231,36 @@ __device__ __forceinline__ void fetch_raw(float *raw, const float *witnesses,
   cp_async_commit();
 }
 
+// One warp compacts a SEGW-witness segment: this lane's 4 witnesses (raw,
+// at `own`) ball-local into `seg_dst`, the segment's in-ball witnesses at
+// the front and the others (moved to MASK) from the back. Returns the
+// segment's in-ball count, the same in every lane.
+template <int DIM>
+__device__ __forceinline__ int compact_segment(const float *own,
+                                               const float *c, float r2,
+                                               Staged<DIM> *seg_dst,
+                                               int lane) {
+  const unsigned lanes_below = (1u << lane) - 1u;
+  Staged<DIM> yl[4];
+  bool in[4];
+  int below = 0, cnt = 0;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    in[i] = ball_local<DIM>(own + i * DIM, c, r2, yl[i]);
+    const unsigned bal = __ballot_sync(FULL, in[i]);
+    below += __popc(bal & lanes_below);
+    cnt += __popc(bal);
+  }
+  int nin = below, nout = 4 * lane - below;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    // in-ball witnesses to the front, the others from the back
+    const int pos = in[i] ? nin++ : SEGW - 1 - nout++;
+    seg_dst[pos] = in[i] ? yl[i] : masked<DIM>();
+  }
+  return cnt;
+}
+
 // Stage the sub-chunk that fetch_raw brought into `raw` into `dst` (SUB
 // staged witnesses), ball-local and compacted per segment; segcnt[seg] is the
 // segment's in-ball count. Readers need a barrier after it.
@@ -238,33 +271,43 @@ __device__ __forceinline__ void stage_compacted(const float *raw,
                                                 int *segcnt,
                                                 int warp, int nw, int lane) {
   cp_async_wait_all();
-  const unsigned lanes_below = (1u << lane) - 1u;
   for (int seg = warp; seg < NSEG; seg += nw) {
-    const float *own = raw + (size_t)(seg * SEGW + 4 * lane) * DIM;
-    Staged<DIM> yl[4];
-    bool in[4];
-    int below = 0, cnt = 0;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      in[i] = ball_local<DIM>(own + i * DIM, c, r2, yl[i]);
-      const unsigned bal = __ballot_sync(FULL, in[i]);
-      below += __popc(bal & lanes_below);
-      cnt += __popc(bal);
-    }
-    Staged<DIM> *seg_dst = dst + seg * SEGW;
-    int nin = below, nout = 4 * lane - below;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // in-ball witnesses to the front, the others from the back
-      const int pos = in[i] ? nin++ : SEGW - 1 - nout++;
-      seg_dst[pos] = in[i] ? yl[i] : masked<DIM>();
-    }
+    const int cnt = compact_segment<DIM>(
+        raw + (size_t)(seg * SEGW + 4 * lane) * DIM, c, r2, dst + seg * SEGW,
+        lane);
     if (lane == 0) segcnt[seg] = cnt;
   }
 }
 
+// acc[k] = min(acc[k], d2 from sample x[k] to the first n witnesses of a
+// compacted segment, n rounded up to UNROLL): the inner loop.
+template <int DIM, int SPT>
+__device__ __forceinline__ void min_over_segment(const Staged<DIM> *ys,
+                                                 int n,
+                                                 float (&x)[SPT][DIM],
+                                                 float (&acc)[SPT]) {
+  const int n_pad = (n + UNROLL - 1) / UNROLL * UNROLL;
+#pragma unroll 4
+  for (int w = 0; w < n_pad; ++w) {
+    const Staged<DIM> yv = ys[w];
+#pragma unroll
+    for (int k = 0; k < SPT; ++k)
+      acc[k] = fminf(acc[k], pair_d2<DIM>(yv, x[k]));
+  }
+}
+
+// A unit with no in-ball witness: every witness of it is masked and gives
+// this value, which the min over all SUB witnesses folds in.
+template <int DIM, int SPT>
+__device__ __forceinline__ void fold_masked(float (&x)[SPT][DIM],
+                                            float (&acc)[SPT]) {
+  const Staged<DIM> m = masked<DIM>();
+#pragma unroll
+  for (int k = 0; k < SPT; ++k) acc[k] = fminf(acc[k], pair_d2<DIM>(m, x[k]));
+}
+
 // acc[k] = min(acc[k], d2 from sample x[k] to every witness of a staged
-// sub-chunk): the inner loop. Returns the sub-chunk's in-ball count.
+// sub-chunk). Returns the sub-chunk's in-ball count.
 template <int DIM, int SPT>
 __device__ __forceinline__ int min_over_staged(const Staged<DIM> *wsh,
                                                const int *segcnt,
@@ -274,24 +317,39 @@ __device__ __forceinline__ int min_over_staged(const Staged<DIM> *wsh,
   for (int seg = 0; seg < NSEG; ++seg) {
     const int n = segcnt[seg];
     total += n;
-    const int n_pad = (n + UNROLL - 1) / UNROLL * UNROLL;
-    const Staged<DIM> *ys = wsh + seg * SEGW;
-#pragma unroll 4
-    for (int w = 0; w < n_pad; ++w) {
-      const Staged<DIM> yv = ys[w];
-#pragma unroll
-      for (int k = 0; k < SPT; ++k)
-        acc[k] = fminf(acc[k], pair_d2<DIM>(yv, x[k]));
-    }
+    min_over_segment<DIM, SPT>(wsh + seg * SEGW, n, x, acc);
   }
-  if (total == 0) {
-    // every witness is out of the ball: they all give this value
-    const Staged<DIM> m = masked<DIM>();
-#pragma unroll
-    for (int k = 0; k < SPT; ++k)
-      acc[k] = fminf(acc[k], pair_d2<DIM>(m, x[k]));
-  }
+  if (total == 0) fold_masked<DIM, SPT>(x, acc);
   return total;
+}
+
+// A warp that stages a sub-chunk one segment at a time (K1's few-sample
+// instances): this lane's 4 witnesses of segment `seg` of sub-chunk `sub`
+// into its own slots of `raw` (SEGW * DIM floats, 16-byte aligned) with
+// cp.async. Only this lane reads them back (stage_segment).
+template <int DIM>
+__device__ __forceinline__ void fetch_segment(float *raw,
+                                              const float *witnesses,
+                                              int sub, int seg, int lane) {
+  cp_async_wait_all();  // no older copy may land after this one
+  const size_t off = (size_t)4 * lane * DIM;
+  const float *src =
+      witnesses + ((size_t)sub * SUB + seg * SEGW) * DIM + off;
+#pragma unroll
+  for (int j = 0; j < DIM; ++j) cp_async16(raw + off + 4 * j, src + 4 * j);
+  cp_async_commit();
+}
+
+// Compact the segment that fetch_segment brought into `raw` into `dst`
+// (SEGW staged witnesses); returns its in-ball count. The warp's readers
+// need __syncwarp after it.
+template <int DIM>
+__device__ __forceinline__ int stage_segment(const float *raw, const float *c,
+                                             float r2, Staged<DIM> *dst,
+                                             int lane) {
+  cp_async_wait_all();
+  return compact_segment<DIM>(raw + (size_t)4 * lane * DIM, c, r2, dst,
+                              lane);
 }
 
 // ---------------------------------------------------------------------------

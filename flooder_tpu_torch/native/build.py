@@ -138,7 +138,7 @@ def build_cuda(names: Iterable[str]) -> None:
 
 
 KERNEL_NAMES = ("flood_min_kernel", "flood_stats_kernel", "fps_loop",
-                "flood_min_wide", "flood_stats_wide")
+                "flood_min_wide", "flood_stats_wide", "flood_min_few")
 
 
 _TYPE_ARGS = {"f": "float", "d": "double"}

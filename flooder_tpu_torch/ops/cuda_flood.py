@@ -22,6 +22,11 @@ TPU's scalar memory, the aliased accumulator, power-of-two compile-key
 bucketing and transposed witness storage. ``active`` is a bool and
 ``dist`` a float, so no pair is ever dropped by a packing.
 
+Few samples a simplex (random mode, coarse grids): up to 384 samples a
+simplex the tiles hold ``FEW_RT`` = 128 samples (``_tile_geometry``; the
+padded total is the same as with one larger tile), and at 1-8 coordinates
+those tiles take K1's few-sample instances, one warp a (simplex, tile).
+
 The kernel takes float32 clouds of any width, as the Pallas engine does:
 template instances for 1-8 coordinates and one runtime-width instance past
 8, which reads the samples coordinate-major (``kernel_samples``); its
@@ -53,6 +58,9 @@ from .flood import _sqsum, local_samples
 
 BS = 8  # simplices per block
 RT = 512  # sample points per tile (at most)
+# Tiles of few-sample passes: one warp of K1's few-sample instances a tile
+FEW_RT = 128
+FEW_WARPS = 2  # its tiles a CTA
 WCHUNK = 2048  # witnesses per work-list chunk
 SUB = 512  # witnesses per sub-chunk (the kernel's shared-memory tile)
 MORTON_BITS_TOTAL = 24
@@ -64,8 +72,10 @@ _MASKED_D2 = 1e30
 KERNEL_MAX_DIM = 8
 
 # Kernel launches through ``flood_min`` (CUDA tensors only), as counted
-# by ``flood_min_launch`` while it enqueues them.
+# by ``flood_min_launch`` and ``flood_min_few_launch`` while they enqueue
+# them; FEW_LAUNCHES counts those of the few-sample instances alone.
 LAUNCHES = 0
+FEW_LAUNCHES = 0
 
 
 def _round_up(x: int, m: int) -> int:
@@ -225,8 +235,11 @@ def witness_total(n: int) -> int:
 
 
 def _tile_geometry(r_count: int):
-    """Sample-tile geometry: (rt samples per tile, nr tiles, padded total)."""
-    rt = min(RT, _round_up(r_count, 128))
+    """Sample-tile geometry: (rt samples per tile, nr tiles, padded total).
+    Up to 384 samples the tiles hold FEW_RT (K1's few-sample instances, a
+    warp a tile), past that RT, with the same padded total either way (the
+    count rounded up to 128, then to RT past RT)."""
+    rt = RT if r_count > RT - FEW_RT else FEW_RT
     nr = -(-r_count // rt)
     return rt, nr, nr * rt
 
@@ -475,14 +488,18 @@ def _lib():
     from ..native.build import load_cuda
 
     lib = load_cuda("flood")
-    lib.flood_min_launch.restype = ctypes.c_int
-    lib.flood_min_launch.argtypes = _ARGTYPES
+    for fn in (lib.flood_min_launch, lib.flood_min_few_launch):
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES
     lib.flooder_cuda_error_string.restype = ctypes.c_char_p
     lib.flooder_cuda_error_string.argtypes = [ctypes.c_int]
     lib.flood_sub.restype = ctypes.c_int
     lib.flood_sub.argtypes = []
-    if lib.flood_sub() != SUB:
-        raise RuntimeError("csrc/flood.cu was built with another SUB")
+    lib.flood_few_warps.restype = ctypes.c_int
+    lib.flood_few_warps.argtypes = []
+    if lib.flood_sub() != SUB or lib.flood_few_warps() != FEW_WARPS:
+        raise RuntimeError("csrc/flood.cu was built with another SUB or "
+                           "FEW_WARPS")
     return lib
 
 
@@ -491,17 +508,21 @@ def flood_min(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
     """K1: min d^2 from every sample to the in-ball witnesses.
 
     CPU tensors go to ``flood_pairs_reference``; CUDA tensors launch
-    ``csrc/flood.cu`` (blocks longest work-list first) or raise. Returns
-    (out (S, nr, rt), stats).
+    ``csrc/flood.cu`` (blocks longest work-list first) or raise: tiles of
+    FEW_RT samples at 1-8 coordinates its few-sample instances (a warp a
+    tile), other tiles its other instances. Returns (out (S, nr, rt),
+    stats).
     """
     operands = (samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
                 tile_hi, ub2, blk_ptr, blk_chunks)
     if samples.device.type == "cpu":
         return flood_pairs_reference(*operands)
-    global LAUNCHES
+    global LAUNCHES, FEW_LAUNCHES
     s_total, nr, rt, dim, n_blk = _check_flood_operands(operands,
                                                         "flood_min")
     lib = _lib()
+    few = rt == FEW_RT and dim <= KERNEL_MAX_DIM
+    launch = lib.flood_min_few_launch if few else lib.flood_min_launch
     cta_order = _cta_order(blk_ptr)
     out = torch.empty((s_total, nr, rt), dtype=torch.float32,
                       device=samples.device)
@@ -511,7 +532,7 @@ def flood_min(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
     kernel_ops = (kernel_samples(samples),) + operands[1:]
     with torch.cuda.device(samples.device):
         stream = torch.cuda.current_stream().cuda_stream
-        rc = lib.flood_min_launch(
+        rc = launch(
             *(t.data_ptr() for t in kernel_ops), cta_order.data_ptr(),
             out.data_ptr(), stats.data_ptr(), n_blk, nr, rt, dim, BS,
             WCHUNK // SUB, stream, ctypes.byref(launched),
@@ -522,6 +543,8 @@ def flood_min(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
             + lib.flooder_cuda_error_string(rc).decode()
         )
     LAUNCHES += launched.value
+    if few:
+        FEW_LAUNCHES += launched.value
     return out, stats
 
 

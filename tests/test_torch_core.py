@@ -15,6 +15,16 @@ from flooder_tpu.topology import bottleneck_distance
 from flooder_tpu_torch import core as core_t
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """K1's plain version is a loop of small torch ops: on one thread it
+    does not contend with the other test workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_same_complex(ref: dict, got: dict):
     assert set(ref) == set(got)
     for simplex, val in ref.items():
@@ -165,3 +175,21 @@ def test_dict_matches_tree_and_landmark_validation():
     assert sum(len(s) == 1 for s in fc) == 70  # clamped to 70 landmarks
     assert isinstance(next(iter(fc.values())), float)
     assert torch.is_tensor(L)
+
+
+def test_landmarks_on_another_device_are_refused():
+    """As flooder_tpu (core.py:379-383): a landmark tensor on another device
+    than the tensor cloud raises before any move (a meta tensor cannot be
+    moved); numpy inputs carry no device and are moved, and ``device=``
+    moves a cloud and landmarks that share a device."""
+    X = ft.generate_noisy_torus_points_3d(600, seed=3, device="cpu")
+    L = ft.generate_landmarks(X, 24, start_idx=0, device="cpu")
+    with pytest.raises(RuntimeError,
+                       match=r"landmarks\.device \(meta\) != points\.device "
+                             r"\(cpu\)"):
+        ft.flood_complex(X, L.to("meta"), points_per_edge=4, device="cpu")
+    want = ft.flood_complex(X, L, points_per_edge=4, device="cpu")
+    assert ft.flood_complex(X, L.numpy(), points_per_edge=4,
+                            device="cpu") == want
+    assert ft.flood_complex(X.numpy(), L, points_per_edge=4,
+                            device="cpu") == want

@@ -190,12 +190,13 @@ def test_flood_kernel_matches_plain_where_balls_cut_subchunks(cuda_device):
 # reaches the fold of a unit with no in-ball witness and a tile that test 3
 # rejects inside an admitted unit. At 512 samples a tile the dim cases have
 # 3 or 4 tiles a simplex, so both tile groups of a CTA compute tiles and read
-# each other's tile maxima.
+# each other's tile maxima; "nr1" has one tile of 128 samples (at most 128
+# samples a simplex), "empty-block" three.
 K3_CASES = {
     "dim1": dict(dim=1, r_count=1100),
     "dim2": dict(dim=2, r_count=2000),
     "dim4": dict(dim=4, r_count=1100),
-    "nr1": dict(dim=3, r_count=200),
+    "nr1": dict(dim=3, r_count=120),
     "nr3": dict(dim=3, r_count=1300),
     "empty-block": dict(dim=3, r_count=300, empty_block=True),
 }
@@ -300,6 +301,47 @@ def test_flood_kernels_match_plain_at_5_to_8_coordinates(cuda_device, dim):
     units, inball = cuda_flood.kernel_operations(stats_k)
     assert 0 < inball < units * cuda_flood.SUB * ops[0].shape[2]
     assert_k3_matches_plain(ops)
+
+
+@pytest.mark.parametrize("r_count", [1, 64, 126, 256])
+@pytest.mark.parametrize("dim", [3, 5, 8])
+def test_flood_kernel_few_samples_match_plain(cuda_device, dim, r_count):
+    """K1's few-sample instances (tiles of 128 samples, a warp a tile; two
+    tiles at 256) against the plain version on balls up to radius 3 that
+    cut sub-chunks, every fourth holding no witness: d^2 within 1e-6, inf
+    alike, every count equal, in one launch of those instances."""
+    ops = k3_case_operands(cuda_device, dim=dim, r_count=r_count,
+                           radius_max=3.0)
+    assert ops[0].shape[1:3] == (-(-r_count // cuda_flood.FEW_RT),
+                                 cuda_flood.FEW_RT)
+    before = (cuda_flood.LAUNCHES, cuda_flood.FEW_LAUNCHES)
+    out_k, stats_k = cuda_flood.flood_min(*ops)
+    torch.cuda.synchronize()
+    assert (cuda_flood.LAUNCHES, cuda_flood.FEW_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
+    masked = out_p >= cuda_flood._MASKED_D2
+    assert torch.equal(out_k >= cuda_flood._MASKED_D2, masked)
+    assert masked.any() and not masked.all()
+    assert (out_k[~masked] - out_p[~masked]).abs().max().item() <= 1e-6
+    assert torch.equal(stats_k, stats_p)
+    assert cuda_flood.kernel_operations(stats_k)[0] > 0
+
+
+def test_landmarks_on_another_device_are_refused_on_card(cuda_device):
+    """As flooder_tpu: CPU landmarks with a CUDA cloud raise before any
+    move; numpy landmarks, and a CPU cloud and CPU landmarks with
+    ``device=``, are moved to the card (test_12d_cloud_through_k2_and_k1
+    moves CPU landmarks with a numpy cloud)."""
+    X = ft.generate_swiss_cheese_points(3000, seed=5, device=cuda_device)[0]
+    L = ft.generate_landmarks(X, 30, start_idx=0)
+    with pytest.raises(RuntimeError, match=r"landmarks\.device \(cpu\) != "
+                       r"points\.device \(cuda:0\)"):
+        ft.flood_complex(X, L.cpu(), points_per_edge=5)
+    want = ft.flood_complex(X, L, points_per_edge=5)
+    assert ft.flood_complex(X, L.cpu().numpy(), points_per_edge=5) == want
+    assert ft.flood_complex(X.cpu(), L.cpu(), points_per_edge=5,
+                            device=cuda_device) == want
 
 
 def assert_within_wide_bar(out_k, out_p, dim):

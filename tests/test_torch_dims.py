@@ -26,6 +26,16 @@ from flooder_tpu_torch import core as core_t
 from flooder_tpu_torch.ops import cuda_flood as cf
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """K1's plain version is a loop of small torch ops: on one thread it
+    does not contend with the other test workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 def _assert_same_complex(ref: dict, got: dict, tol: float = 1e-5):
     assert set(ref) == set(got)
     for simplex, val in ref.items():
@@ -197,14 +207,6 @@ def test_plain_k3_matches_pallas_k3_past_8_coordinates():
     assert st_t[:, cfs.COL_TILES].sum() > 0
 
 
-@pytest.fixture
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
-
-
 def _all_pairs_operands(dim, seed=11):
     """K1's operands for one block of 8 simplices, 128 samples each and one
     chunk of 2,048 witnesses in [0, 1]^dim, built so that every pair is
@@ -229,7 +231,7 @@ def _all_pairs_operands(dim, seed=11):
 
 
 @pytest.mark.parametrize("dim", [9, 16, 40, 64])
-def test_fp32_summation_orders_meet_the_wide_bar(one_thread, dim):
+def test_fp32_summation_orders_meet_the_wide_bar(dim):
     """The bar the card holds K1's and K3's runtime-width instances to:
     |d2 - d2_plain| <= 2 * dim * 2**-24 * d2. Over every (sample, witness)
     pair of a block, the plain version's min d2 (products and sums rounded
