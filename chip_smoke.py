@@ -53,8 +53,14 @@ check fails):
   whole blocks, and random mode against the dense engine on the 100k x
   300 cut (within 1e-5). Bounds and issue floors count real sample rows
   only; the launch's CTAs, derived occupancy, units and in-ball pairs on
-  real samples and on all slots are printed. ``--only few`` runs the build
-  and this phase alone.
+  real samples and on all slots are printed. Past 8 coordinates
+  (few_wide_grid) it holds flood_min_few_wide (9-16) and
+  flood_min_few_slabs (17 and more) on seeded operands at 9-64
+  coordinates with 1-384 samples a simplex against their plain version
+  (the runtime-width bar, inf in place, every count equal), against
+  flood_min_wide on the same 128-sample tiles (bit for bit, the same
+  counts) and against K3 (bit for bit, its tiles equal to K1's units).
+  ``--only few`` runs the build and this phase alone.
 - float64: K2's double instance against its plain version on the
   many-chunks cloud and the 1M cheese (1000 landmarks), timed beside
   float32; ``flood_complex`` in float64 (dense engine) against the float32
@@ -78,8 +84,16 @@ check fails):
   in-ball pairs), K2's picks against its plain version on the path's
   cloud, K1's plain version on two whole blocks of that launch (the
   longest and one from the middle; the runtime-width bar, counts exact),
-  a finite, monotone filtration with one essential H0 class, and the
-  kernel route against the dense engine on a 100,000-point cut.
+  a finite, monotone filtration with one essential H0 class, random
+  mode on the same cloud and landmarks (wide_random_mode: num_rand 64 and
+  256, ``np.random.seed`` fixed, the launch counters set to 0 just before
+  each run and read just after: one K2 launch and four few-sample K1
+  launches; each pass's K1 timed beside flood_min_wide on the same
+  operands, equal to it bit for bit, and held against its plain version
+  on two whole blocks; the diagram sizes printed), and the kernel route
+  against the dense engine on a 100,000-point cut. ``--only few_wide``
+  runs the build, the few phase's blocks past 8 coordinates and this
+  random mode alone.
 
 The cli phase (after the main path) saves the main path's cloud to a
 ``.npy`` and runs ``python -m flooder_tpu_torch.cli`` on it twice as a
@@ -104,7 +118,9 @@ phase runs each of ``flooder_tpu_torch/examples`` with ``--small`` on the
 card.
 
 Each kernel instance's SASS is printed as a digest (``sass_digests``), so
-two builds can be compared instance by instance.
+two builds can be compared instance by instance; the build section also
+compares them with REFERENCE_DIGESTS, those of every instance that existed
+before the few-sample instances past 8 coordinates.
 
 Output: ``#`` lines with every phase's result, then a ``{"kernels": ...}``
 JSON line, the card's name and power limit, and as the last line
@@ -165,6 +181,10 @@ DIM5_POINTS, DIM5_LANDMARKS, DIM5_PPE = 200_000, 64, 5  # K1 timed at 5-D
 FEW_DIMS, FEW_R = (3, 5), (1, 64, 126, 256)
 FEW_NUM_RAND = (64, 256)
 FEW_WEIGHT_SEED = 0
+# ... and past 8 coordinates (flood_min_few_wide at 9-16, flood_min_few_slabs
+# past 16), also against flood_min_wide on the same tiles and K3
+FEW_WIDE_DIMS, FEW_WIDE_R = (9, 12, 16, 17, 37, 38, 40, 64), (1, 64, 126,
+                                                              256, 384)
 F64_LANDMARKS = 150  # the reference's test_float64 clouds: 3000 x 150
 F64_POINTS = 3000
 DENSE_POINTS, DENSE_LANDMARKS = 100_000, 300  # float64 and dense timing
@@ -195,6 +215,60 @@ WIDE_PPE_ASKED, WIDE_PPE_CUTS = 30, (15, 10)
 WIDE_K1_LIMIT_S = 20.0
 WIDE_LONGEST_BLOCKS, WIDE_SPREAD_BLOCKS = 1, 1  # K1's plain check, blocks
 WIDE_CUT_POINTS, WIDE_CUT_PPE = 100_000, 5  # against the dense engine
+# random mode on the 10-D path's cloud and landmarks (np.random.seed fixed):
+# each pass's K1 timed beside flood_min_wide on the same tiles
+WIDE_NUM_RAND, WIDE_RANDOM_REPS = (64, 256), 3
+# SASS digests (sass_digests) of every instance that existed before the
+# few-sample instances past 8 coordinates, as CUDA 12.8's nvcc built them
+# for sm_90a: the build section prints how this build compares
+REFERENCE_DIGESTS = {
+    "flood": {
+        "flood_min_few<8>": "c356c54beddd",
+        "flood_min_few<7>": "f9e2aefb3c69",
+        "flood_min_few<6>": "a17c3751e325",
+        "flood_min_few<5>": "b4b514cc599c",
+        "flood_min_few<4>": "844f5e1def53",
+        "flood_min_few<3>": "ab610fa739fa",
+        "flood_min_few<2>": "2832d1d71fba",
+        "flood_min_few<1>": "f4304b0aa3ce",
+        "flood_min_kernel<8>": "475e3a84b9b0",
+        "flood_min_kernel<7>": "b95d9b5fcb2a",
+        "flood_min_kernel<6>": "ed27c15613e9",
+        "flood_min_kernel<5>": "532678c958f2",
+        "flood_min_kernel<4>": "e5ad70430529",
+        "flood_min_kernel<3>": "7358e95274b5",
+        "flood_min_kernel<2>": "7af48e90aacb",
+        "flood_min_kernel<1>": "d7e52a1200e8",
+        "flood_min_wide": "f20020c5e5ae"},
+    "fps": {
+        "fps_loop<float,8>": "c47e0cece738",
+        "fps_loop<float,7>": "445d4ade0caa",
+        "fps_loop<float,6>": "2edf27b06b81",
+        "fps_loop<float,5>": "3c4fd6d19b0d",
+        "fps_loop<float,4>": "c5d52a15e22e",
+        "fps_loop<float,3>": "6215bae82232",
+        "fps_loop<float,2>": "c72fd876063f",
+        "fps_loop<float,1>": "10b82d0d1fd0",
+        "fps_loop<float,wide>": "9707ce1a4d6c",
+        "fps_loop<double,8>": "033a21200d3b",
+        "fps_loop<double,7>": "8ac5da1d15da",
+        "fps_loop<double,6>": "d42a32eae713",
+        "fps_loop<double,5>": "54005e9e4218",
+        "fps_loop<double,4>": "d8d2eefa8ede",
+        "fps_loop<double,3>": "f02c595c80c4",
+        "fps_loop<double,2>": "ec264959f0b9",
+        "fps_loop<double,1>": "7d4f6607db60",
+        "fps_loop<double,wide>": "f1c8db0037b8"},
+    "flood_stats": {
+        "flood_stats_kernel<8>": "e29499754c13",
+        "flood_stats_kernel<7>": "0850bd07586b",
+        "flood_stats_kernel<6>": "792cf99fc546",
+        "flood_stats_kernel<5>": "4f2ea6c7aca9",
+        "flood_stats_kernel<4>": "f12114e28f98",
+        "flood_stats_kernel<3>": "545fbe0d78c7",
+        "flood_stats_kernel<2>": "07628a0463e6",
+        "flood_stats_kernel<1>": "72492b9bfb21",
+        "flood_stats_wide": "f1f671579639"}}
 
 
 def log(msg):
@@ -525,9 +599,10 @@ def issue_floor_ms(inball_pairs, sms, clock_mhz,
 def wide_occupancy(build):
     """(instance, dim, nr, registers, shared bytes a CTA, CTAs and warps an
     SM) of the runtime-width instances at rt 512 (256 threads a CTA) on the
-    10-D path's width and at 64 coordinates (K3 at nr 10), from the ptxas
-    lines and the kernels' own shared-memory sizes; empty when this process
-    built neither library (no ptxas lines)."""
+    10-D path's width and at 64 coordinates (K3 at nr 10), and of K1's
+    few-sample ones at rt 128 (FEW_WIDE_WARPS warps a CTA) at 10, 16 and 64,
+    from the ptxas lines and the kernels' own shared-memory sizes; empty
+    when this process built neither library (no ptxas lines)."""
     import ctypes
 
     lib = build.load_cuda("flood")
@@ -549,6 +624,19 @@ def wide_occupancy(build):
             r, static = regs[name]
             ctas = resident_ctas(r, static + dyn, 256)
             rows.append((name, dim, nr, r, static + dyn, ctas, ctas * 8))
+    # the few-sample instances (FEW_WIDE_WARPS warps a CTA) at 10 and 16
+    # coordinates (one slab) and 64 (slabs)
+    from flooder_tpu_torch.ops import cuda_flood
+
+    threads = 32 * getattr(cuda_flood, "FEW_WIDE_WARPS", 0)
+    for dim in (WIDE_DIM, 16, max(WIDE_DIMS)):
+        name = threads and cuda_flood.k1_instance(cuda_flood.FEW_RT, dim)
+        if name in regs:
+            r, static = regs[name]
+            total = static + k1_dyn_smem(name, dim)
+            ctas = resident_ctas(r, total, threads)
+            rows.append((name, dim, 1, r, total, ctas,
+                         ctas * threads // 32))
     return rows
 
 
@@ -592,22 +680,210 @@ def real_pairs(stats, nr, rt, r_count):
                for r, p in enumerate(per_tile))
 
 
-def k1_launch_shape(ops):
-    """(instance, CTAs, threads a CTA) of K1's launch on these operands:
-    the few-sample instance for tiles of FEW_RT samples at 1-8
-    coordinates, else the instance for tiles of up to 512 (a checkout
-    without the few-sample instances launches the latter)."""
+def k1_launch_shape(ops, tiled=False):
+    """(instance, CTAs, threads a CTA) of K1's launch on these operands: the
+    instance ``cuda_flood.k1_instance`` names (a checkout without it: the
+    few-sample instance for tiles of FEW_RT samples at 1-8 coordinates, else
+    the instance for tiles of up to 512), or with ``tiled`` the latter, as
+    ``cuda_flood.flood_min_tiled`` launches it."""
     from flooder_tpu_torch.ops import cuda_flood
 
     s_total, nr, rt, dim = ops[0].shape
     n_blk = s_total // cuda_flood.BS
+    if tiled:
+        inst = ("flood_min_wide" if dim > cuda_flood.KERNEL_MAX_DIM
+                else f"flood_min_kernel<{dim}>")
+    elif hasattr(cuda_flood, "k1_instance"):
+        inst = cuda_flood.k1_instance(rt, dim)
+    elif dim > cuda_flood.KERNEL_MAX_DIM:
+        inst = "flood_min_wide"
+    elif rt == getattr(cuda_flood, "FEW_RT", None):
+        inst = f"flood_min_few<{dim}>"
+    else:
+        inst = f"flood_min_kernel<{dim}>"
+    if inst.startswith("flood_min_few"):
+        warps = (cuda_flood.FEW_WARPS if dim <= cuda_flood.KERNEL_MAX_DIM
+                 else cuda_flood.FEW_WIDE_WARPS)
+        return inst, -(-n_blk * cuda_flood.BS * nr // warps), 32 * warps
+    if inst == "flood_min_wide":
+        return inst, n_blk * nr, rt // 2
+    return inst, n_blk * nr, rt // 4
+
+
+def k1_env():
+    """What K1's launch records read of this build and card: SMs, the max SM
+    clock, each instance's fp32 instructions a pair (a pair and coordinate
+    past 8 coordinates) from its SASS pair loop, and its ptxas row."""
+    import torch
+
+    from flooder_tpu_torch.native import build
+
+    return dict(
+        sms=torch.cuda.get_device_properties(0).multi_processor_count,
+        clock_mhz=float(card_line("clocks.max.sm").split()[0]),
+        loops={r[0]: r[2] for r in sass_pair_loops(
+            build.cuda_library("flood")) or () if r[2]},
+        ptxas={row[0]: row[1:] for text in build.BUILD_LOG.values()
+               for row in build.ptxas_kernels(text)})
+
+
+def k1_dyn_smem(inst, dim):
+    """Dynamic shared memory a CTA of K1's instance asks for."""
+    import ctypes
+
+    from flooder_tpu_torch.native import build
+    from flooder_tpu_torch.ops import cuda_flood
+
+    if inst == "flood_min_kernel<8>":
+        return cuda_flood.SUB * 8 * 4  # its raw buffer
+    name = {"flood_min_wide": "flood_wide_smem_bytes",
+            "flood_min_few_wide": "flood_few_wide_smem_bytes",
+            "flood_min_few_slabs": "flood_few_wide_smem_bytes"}.get(inst)
+    if name is None:
+        return 0
+    fn = getattr(build.load_cuda("flood"), name)
+    fn.restype, fn.argtypes = ctypes.c_longlong, [ctypes.c_int]
+    return int(fn(dim))
+
+
+def launch_record(ops, stats, r_count, env, tiled=False):
+    """K1's launch on these operands (``tiled``: as k1_launch_shape): its
+    shape, derived occupancy, work (units, in-ball pairs on real samples and
+    on all slots), bound and issue floor, both on real samples. Returns
+    (record, text)."""
+    from flooder_tpu_torch.ops import cuda_flood
+
+    inst, ctas, threads = k1_launch_shape(ops, tiled)
+    s_total, nr, rt, dim = ops[0].shape
+    units, padded = cuda_flood.kernel_operations(stats)
+    real = real_pairs(stats, nr, rt, r_count)
+    bound, by = flood_bound_ms(ops, real)
+    per = env["loops"].get(inst)
+    wide = dim > cuda_flood.KERNEL_MAX_DIM
+    instr = (per * dim + 1 if wide else per) if per else 2 * dim + 1
+    floor = issue_floor_ms(real, env["sms"], env["clock_mhz"], instr)
+    occ = "not derived (no ptxas lines in this process)"
+    if inst in env["ptxas"]:
+        regs, _, smem = env["ptxas"][inst]
+        smem += k1_dyn_smem(inst, dim)
+        per_sm = resident_ctas(regs, smem, threads)
+        occ = (f"{per_sm} CTAs, {per_sm * threads // 32} warps an SM "
+               f"({regs} registers, {smem} shared bytes a CTA)")
+    text = (f"{inst}, {ctas} CTAs of {threads} threads ({nr} x {rt} "
+            f"slots a simplex for {r_count} samples; derived occupancy "
+            f"{occ}), {units} units, {real} in-ball pairs on real samples "
+            f"({padded} on all slots), bound {bound:.4f} ms ({by}), issue "
+            f"floor {floor:.4f} ms ({instr:g} fp32 instructions a pair, real "
+            "samples)")
+    return dict(instance=inst, ctas=ctas, threads=threads, units=units,
+                inball_real=real, inball_slots=padded, bound_ms=bound,
+                bound_by=by, issue_floor_ms=floor), text
+
+
+def random_mode_run(X, landmarks, num_rand, top_dim, what):
+    """flood_complex in random mode (``np.random.seed(FEW_WEIGHT_SEED)``,
+    ``landmarks`` a count: K2 picks them) and persistence, with the launch
+    counters set to 0 just before and read just after, the stages fenced
+    and K1's launches kept where the engine makes them. Fails unless K2 ran
+    once and K1 once a pass through its few-sample instances, and the
+    filtration is finite and monotone with one essential H0 class. Returns
+    dict(calls [(ops, (out, stats))], launches, complex_s, persistence_s,
+    stage_split_s, simplices, bars)."""
+    import torch
+
+    import flooder_tpu_torch as ft
+    from flooder_tpu_torch.ops import cuda_flood, cuda_fps
+    from flooder_tpu_torch.utils import stagetimer
+
+    k1 = cuda_flood.flood_min
+    calls = []
+
+    def flood_min_kept(*ops):
+        res = k1(*ops)
+        calls.append((ops, res))
+        return res
+
+    # a checkout whose few-sample instances take these tiles counts them
+    few_count = hasattr(cuda_flood, "FEW_LAUNCHES") and (
+        X.shape[1] <= cuda_flood.KERNEL_MAX_DIM
+        or hasattr(cuda_flood, "k1_instance"))
+    cuda_fps.LAUNCHES = cuda_flood.LAUNCHES = 0
+    if few_count:
+        cuda_flood.FEW_LAUNCHES = 0
+    np.random.seed(FEW_WEIGHT_SEED)
+    torch.cuda.synchronize()
+    buf = io.StringIO()
+    stagetimer.ENABLED, cuda_flood.flood_min = True, flood_min_kept
+    try:
+        with contextlib.redirect_stderr(buf):
+            t0 = time.perf_counter()
+            stree = ft.flood_complex(X, landmarks, num_rand=num_rand,
+                                     points_per_edge=None,
+                                     max_dimension=top_dim,
+                                     return_simplex_tree=True)
+            t1 = time.perf_counter()
+            with stagetimer.stage("persistence"):
+                stree.compute_persistence()
+                diagrams = [stree.persistence_intervals_in_dimension(i)
+                            for i in range(min(top_dim, 3))]
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+    finally:
+        stagetimer.ENABLED, cuda_flood.flood_min = False, k1
+    launches = {"fps": cuda_fps.LAUNCHES, "flood": cuda_flood.LAUNCHES}
+    if few_count:
+        launches["flood_few"] = cuda_flood.FEW_LAUNCHES
+    log(f"{what} launches (one run): {launches}")
+    passes = top_dim + 1
+    if (launches["fps"], launches["flood"], len(calls)) != (
+            1, passes, passes) or (few_count and
+                                   launches["flood_few"] != passes):
+        raise AssertionError(f"{what} must launch K2 once and K1's "
+                             f"few-sample instances once a pass: {launches}")
+    split = {}
+    for name, sec in re.findall(r"^\[flooder-timing\] (.+): ([0-9.]+)s$",
+                                buf.getvalue(), flags=re.M):
+        split[name] = round(split.get(name, 0.0) + float(sec), 4)
+    vals = np.concatenate(stree._filt)
+    if not np.isfinite(vals).all():
+        raise AssertionError(f"{what}: non-finite values")
+    if stree.make_filtration_non_decreasing():
+        raise AssertionError(f"{what}: not monotone")
+    if int(np.isinf(diagrams[0][:, 1]).sum()) != 1:
+        raise AssertionError(f"{what}: H0 must have one essential class")
+    return dict(calls=calls, launches=launches, complex_s=t1 - t0,
+                persistence_s=t2 - t1, stage_split_s=split,
+                simplices=[int(v.shape[0]) for v in stree._verts],
+                bars=[len(d) for d in diagrams])
+
+
+def plain_on_blocks(ops, out_k, stats_k, what):
+    """K1's plain version on two whole blocks of a launch (the one with the
+    longest pair list and one from the middle): every count equal, d2
+    within 1e-6 (1-8 coordinates) or the runtime-width bar, inf in place.
+    Returns (max |d2 diff|, blocks, pairs)."""
+    import torch
+
+    from flooder_tpu_torch.ops import cuda_flood
+    from flooder_tpu_torch.tools.scene import block_slice
+
+    lens = (ops[-2][1:] - ops[-2][:-1]).cpu().numpy()
+    by_len = np.argsort(-lens, kind="stable")
+    blocks = [int(by_len[0]), int(by_len[int(np.count_nonzero(lens)) // 2])]
+    sliced, rows = block_slice(ops, blocks)
+    out_p, stats_p = cuda_flood.flood_pairs_reference(*sliced)
+    nr, dim = ops[0].shape[1], ops[0].shape[3]
+    stats_rows = stats_k.reshape(-1, nr, 2)[torch.as_tensor(
+        blocks, device=stats_k.device)].reshape(-1, 2)
+    what = f"{what}, blocks {blocks}"
+    if not torch.equal(stats_rows, stats_p):
+        raise AssertionError(f"{what}: counts differ from the plain "
+                             "version's")
     if dim > cuda_flood.KERNEL_MAX_DIM:
-        return "flood_min_wide", n_blk * nr, rt // 2
-    if rt == getattr(cuda_flood, "FEW_RT", None):
-        warps = cuda_flood.FEW_WARPS
-        return (f"flood_min_few<{dim}>",
-                -(-n_blk * cuda_flood.BS * nr // warps), 32 * warps)
-    return f"flood_min_kernel<{dim}>", n_blk * nr, rt // 4
+        err = wide_d2_diff(out_k[rows], out_p, dim, what)[0]
+    else:
+        err = flood_d2_diff(out_k[rows], out_p, what)
+    return err, blocks, sliced[-1].numel()
 
 
 def sorted_bars(d):
@@ -969,8 +1245,9 @@ def wide_phase(seed):
     K1 at 64 coordinates, and the slice's path, a 1M-point 10-D swiss cheese
     through generate_landmarks (K2), flood_complex (K1) and persistence,
     with K2's plain version on the path's cloud, K1's plain version on whole
-    blocks of the path's launch and the dense engine on a 100k cut. Returns
-    the numbers of the kernels line."""
+    blocks of the path's launch, random mode on the same cloud
+    (wide_random_mode) and the dense engine on a 100k cut. Returns the
+    numbers of the kernels line."""
     import torch
 
     import flooder_tpu_torch as ft
@@ -1246,6 +1523,11 @@ def wide_phase(seed):
         f"the same places, every count equal; plain {plain_ms:.1f} ms")
     del ops, out_k, stats_k, sliced, rows, out_p, stats_p
 
+    # ---- random mode on the same cloud: K1's few-sample instance ----------
+    t0 = time.perf_counter()
+    out["random_mode"] = wide_random_mode(X, k1_env())
+    log(f"wide random mode: {time.perf_counter() - t0:.1f}s")
+
     # ---- a 100k cut of the same cloud against the dense engine ------------
     Xc = X[:WIDE_CUT_POINTS]
     del X
@@ -1262,61 +1544,150 @@ def wide_phase(seed):
     return out
 
 
+def few_wide_grid(env):
+    """K1's few-sample instances past 8 coordinates (flood_min_few_wide at
+    9-16, flood_min_few_slabs past 16) on seeded operands at FEW_WIDE_DIMS x
+    FEW_WIDE_R: against the plain version (the runtime-width bar, inf in
+    place, every count equal, one few-sample launch each), against
+    flood_min_wide on the same 128-sample tiles (``flood_min_tiled``: bit
+    for bit, the same counts) and against K3's runtime-width instance (bit
+    for bit, its computed tiles equal to K1's units). Returns {"dim-R": max
+    |d2 diff|}."""
+    import torch
+
+    from flooder_tpu_torch.ops import cuda_flood, cuda_flood_stats
+
+    dev = torch.device("cuda")
+    tiled = getattr(cuda_flood, "flood_min_tiled", None)
+    errs = {}
+    for dim in FEW_WIDE_DIMS:
+        share, units, n_inf, n_masked, insts = 0.0, [], 0, 0, set()
+        for r_count in FEW_WIDE_R:
+            ops = seeded_flood_operands(dim, dev, r_count=r_count)
+            what = f"K1 at {dim} coordinates, {r_count} samples a simplex"
+            insts.add(k1_launch_shape(ops)[0])
+            before = (cuda_flood.LAUNCHES,
+                      getattr(cuda_flood, "FEW_LAUNCHES", 0))
+            out_k, stats_k = cuda_flood.flood_min(*ops)
+            torch.cuda.synchronize()
+            if tiled is not None and (
+                    cuda_flood.LAUNCHES, cuda_flood.FEW_LAUNCHES) != (
+                    before[0] + 1, before[1] + 1):
+                raise AssertionError(f"{what}: not one few-sample launch")
+            out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
+            err, sh = wide_d2_diff(out_k, out_p, dim, what)
+            if not torch.equal(stats_k, stats_p):
+                raise AssertionError(f"{what}: counts differ from the plain "
+                                     "version's")
+            if tiled is not None:
+                out_t, stats_t = tiled(*ops)
+                if not (torch.equal(out_k, out_t)
+                        and torch.equal(stats_k, stats_t)):
+                    raise AssertionError(f"{what}: differs from "
+                                         "flood_min_wide at rt 128")
+            out_3, stats_3 = cuda_flood_stats.flood_min_stats(*ops)
+            units.append(cuda_flood.kernel_operations(stats_k)[0])
+            if not (torch.equal(out_3, out_k) and stats_3[
+                    :, cuda_flood_stats.COL_TILES].sum().item() == units[-1]):
+                raise AssertionError(f"{what}: K3 differs from K1")
+            errs[f"{dim}-{r_count}"] = err
+            share = max(share, sh)
+            masked = out_p >= cuda_flood._MASKED_D2
+            n_masked += int(masked.sum())
+            n_inf += int(torch.isinf(out_p).sum())
+        log(f"few past 8 coordinates, dim {dim} ({', '.join(sorted(insts))}),"
+            f" R {list(FEW_WIDE_R)}: max |d2 diff| "
+            f"{max(errs[f'{dim}-{r}'] for r in FEW_WIDE_R)} against the plain "
+            f"version (largest share of the 2 * dim * 2**-24 * d2 bar "
+            f"{share:.4f}), inf in the same places ({n_masked - n_inf} finite "
+            f">= 1e30, {n_inf} +inf), every count equal; "
+            + ("== flood_min_wide at rt 128 bit for bit with its counts; "
+               if tiled is not None else "")
+            + f"K3 == K1, tiles == units {units}")
+    return errs
+
+
+def wide_random_mode(X, env):
+    """Random mode on the 10-D path: ``X`` (the wide phase's 1M-point 10-D
+    cheese), its WIDE_LANDMARKS K2 landmarks, max_dimension WIDE_TOP_DIM,
+    num_rand WIDE_NUM_RAND (``np.random.seed`` fixed), through
+    random_mode_run; each pass's K1 timed on its own operands (mean of
+    WIDE_RANDOM_REPS after a warm-up) beside flood_min_wide on the same
+    128-sample tiles (what they took before the few-sample instance: bit for
+    bit, the same counts), and held against its plain version on 2 whole
+    blocks; bounds and issue floors on real samples. Returns the numbers of
+    the kernels line."""
+    import torch
+
+    from flooder_tpu_torch.ops import cuda_flood
+
+    tiled = getattr(cuda_flood, "flood_min_tiled", cuda_flood.flood_min)
+    out = {}
+    for num_rand in WIDE_NUM_RAND:
+        what = f"wide random mode num_rand {num_rand}"
+        run = random_mode_run(X, WIDE_LANDMARKS, num_rand, WIDE_TOP_DIM, what)
+        passes = []
+        for d, (ops, (out_k, stats_k)) in enumerate(run["calls"]):
+            ms = cuda_ms(lambda: cuda_flood.flood_min(*ops), WIDE_RANDOM_REPS)
+            got = []  # the warm-up's result
+            tiled_ms = cuda_ms(lambda: got.append(tiled(*ops)) if not got
+                               else tiled(*ops), WIDE_RANDOM_REPS)
+            out_t, stats_t = got.pop()
+            if not (torch.equal(out_k, out_t)
+                    and torch.equal(stats_k, stats_t)):
+                raise AssertionError(f"{what}, pass {d}: differs from "
+                                     "flood_min_wide at rt 128")
+            del out_t, stats_t
+            rec, text = launch_record(ops, stats_k, num_rand, env)
+            rec_t, text_t = launch_record(ops, stats_k, num_rand, env, True)
+            err, blocks, pairs = plain_on_blocks(
+                ops, out_k, stats_k, f"{what}, pass {d}")
+            passes.append(dict(
+                dim=d, simplices=run["simplices"][d], ms=ms,
+                tiled_ms=tiled_ms, tiled_ctas=rec_t["ctas"],
+                tiled_threads=rec_t["threads"], max_abs_err_on_blocks=err,
+                **rec))
+            log(f"{what}, pass {d} ({run['simplices'][d]} simplices): kernel "
+                f"{ms:.3f} ms, flood_min_wide at rt 128 {tiled_ms:.3f} ms "
+                f"(means of {WIDE_RANDOM_REPS} after a warm-up, the pass's own "
+                f"operands; equal bit for bit, the same counts); {text}; "
+                f"flood_min_wide: {text_t.split(', ', 1)[1].split('), ')[0]}"
+                f"); plain version on blocks {blocks} ({pairs} pairs): max "
+                f"|d2 diff| {err}, every count equal")
+        out[str(num_rand)] = dict(passes=passes, **{k: run[k] for k in (
+            "launches", "complex_s", "persistence_s", "stage_split_s",
+            "bars", "simplices")})
+        log(f"{what}: complex {run['simplices']} simplices, finite and "
+            f"monotone, one essential H0 class; diagram sizes {run['bars']}; "
+            f"landmarks + flood_complex {run['complex_s']:.4f}s, persistence "
+            f"{run['persistence_s']:.4f}s (host clock, fenced stages); K1 "
+            f"{sum(p['ms'] for p in passes):.3f} ms over the passes "
+            f"(flood_min_wide at rt 128: "
+            f"{sum(p['tiled_ms'] for p in passes):.3f} ms)")
+        log(f"{what} stage split (s, fenced; nested stages overlap): "
+            f"{json.dumps(run['stage_split_s'])}")
+        del run, ops, out_k, stats_k
+    return out
+
+
 def few_phase(X=None):
     """K1's few-sample instances (tiles of 128 samples, a warp a tile): held
-    against their plain version on seeded operands at FEW_DIMS x FEW_R,
-    timed on a 200k 5-D cloud, and driven through random mode on the main
-    path's 1M x 1k cloud (``X``, made here when None) with the launch
-    counters set to 0 just before each run and read just after, each pass's
-    K1 held against its plain version on whole blocks, and random mode
-    against the dense engine on the 100k x 300 cut. Bounds and issue floors
-    count real sample rows only. Returns the numbers of the kernels line."""
+    against their plain version on seeded operands at FEW_DIMS x FEW_R and,
+    past 8 coordinates, at FEW_WIDE_DIMS x FEW_WIDE_R (few_wide_grid), timed
+    on a 200k 5-D cloud, and driven through random mode on the main path's
+    1M x 1k cloud (``X``, made here when None) with the launch counters set
+    to 0 just before each run and read just after, each pass's K1 held
+    against its plain version on whole blocks, and random mode against the
+    dense engine on the 100k x 300 cut. Bounds and issue floors count real
+    sample rows only. Returns the numbers of the kernels line."""
     import torch
 
     import flooder_tpu_torch as ft
     from flooder_tpu_torch.core import _grid_host
-    from flooder_tpu_torch.native import build
-    from flooder_tpu_torch.ops import cuda_flood, cuda_fps
-    from flooder_tpu_torch.tools.scene import block_slice
-    from flooder_tpu_torch.utils import stagetimer
+    from flooder_tpu_torch.ops import cuda_flood
 
     dev = torch.device("cuda")
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
-    clock_mhz = float(card_line("clocks.max.sm").split()[0])
-    loops = {r[0]: r[2] for r in sass_pair_loops(build.cuda_library("flood"))
-             or () if r[2]}
-    ptxas = {row[0]: row[1:] for text in build.BUILD_LOG.values()
-             for row in build.ptxas_kernels(text)}
-    few_count = hasattr(cuda_flood, "FEW_LAUNCHES")
-
-    def launch_text(ops, stats, r_count):
-        """The launch's shape, work (real and padded in-ball pairs), bound
-        and issue floor, both on real samples."""
-        inst, ctas, threads = k1_launch_shape(ops)
-        s_total, nr, rt, dim = ops[0].shape
-        units, padded = cuda_flood.kernel_operations(stats)
-        real = real_pairs(stats, nr, rt, r_count)
-        bound, by = flood_bound_ms(ops, real)
-        instr = loops.get(inst, 2 * dim + 1)
-        floor = issue_floor_ms(real, sms, clock_mhz, instr)
-        occ = "not derived (no ptxas lines in this process)"
-        if inst in ptxas:
-            regs, _, smem = ptxas[inst]
-            if inst == "flood_min_kernel<8>":
-                smem += cuda_flood.SUB * 8 * 4  # its dynamic raw buffer
-            per_sm = resident_ctas(regs, smem, threads)
-            occ = f"{per_sm} CTAs, {per_sm * threads // 32} warps an SM"
-        text = (f"{inst}, {ctas} CTAs of {threads} threads ({nr} x {rt} "
-                f"slots a simplex for {r_count} samples; derived occupancy "
-                f"{occ}), "
-                f"{units} units, {real} in-ball pairs on real samples "
-                f"({padded} on all slots), bound {bound:.4f} ms ({by}), "
-                f"issue floor {floor:.4f} ms ({instr:g} fp32 instructions a "
-                "pair, real samples)")
-        return dict(instance=inst, ctas=ctas, units=units, inball_real=real,
-                    inball_slots=padded, bound_ms=bound, bound_by=by,
-                    issue_floor_ms=floor), text
-
+    env = k1_env()
     out = {"seeded_max_abs_err": {}, "random_mode": {}, "cut_vs_dense": {}}
     # ---- seeded operands against the plain version -----------------------
     for dim in FEW_DIMS:
@@ -1333,8 +1704,9 @@ def few_phase(X=None):
             n_inf = int((out_p >= cuda_flood._MASKED_D2).sum())
             log(f"few {what}: max |d2 diff| {err} against the plain "
                 f"version, inf in the same places ({n_inf}), every count "
-                f"equal; {launch_text(ops, stats_k, r_count)[1]}")
+                f"equal; {launch_record(ops, stats_k, r_count, env)[1]}")
     del ops, out_k, stats_k, out_p, stats_p
+    out["wide_grid"] = few_wide_grid(env)
 
     # ---- K1 timed on a 5-D cloud ------------------------------------------
     X5 = torch.rand(DIM5_POINTS, 5, device=dev,
@@ -1344,7 +1716,8 @@ def few_phase(X=None):
                                  DIM5_PPE)
     ms5 = cuda_ms(lambda: cuda_flood.flood_min(*ops5), 5)
     _, stats5 = cuda_flood.flood_min(*ops5)
-    rec5, text5 = launch_text(ops5, stats5, _grid_host(DIM5_PPE, 5)[0].shape[0])
+    rec5, text5 = launch_record(ops5, stats5,
+                                _grid_host(DIM5_PPE, 5)[0].shape[0], env)
     out["k1_5d"] = dict(ms=ms5, simplices=n5, pairs=ops5[-1].numel(), **rec5)
     log(f"few K1<5> at {DIM5_POINTS} x {DIM5_LANDMARKS}, ppe {DIM5_PPE} ({n5} "
         f"5-simplices, {ops5[-1].numel()} pairs): kernel {ms5:.3f} ms (mean "
@@ -1355,98 +1728,34 @@ def few_phase(X=None):
     if X is None:
         X = ft.generate_swiss_cheese_points(N_POINTS, k=6, seed=42,
                                             device=dev)[0]
-    k1 = cuda_flood.flood_min
     for num_rand in FEW_NUM_RAND:
-        calls = []
-
-        def flood_min_kept(*ops):
-            res = k1(*ops)
-            calls.append((ops, res))
-            return res
-
-        cuda_fps.LAUNCHES = cuda_flood.LAUNCHES = 0
-        if few_count:
-            cuda_flood.FEW_LAUNCHES = 0
-        np.random.seed(FEW_WEIGHT_SEED)
-        torch.cuda.synchronize()
-        buf = io.StringIO()
-        stagetimer.ENABLED, cuda_flood.flood_min = True, flood_min_kept
-        try:
-            with contextlib.redirect_stderr(buf):
-                t0 = time.perf_counter()
-                stree = ft.flood_complex(X, N_LANDMARKS, num_rand=num_rand,
-                                         points_per_edge=None,
-                                         return_simplex_tree=True)
-                t1 = time.perf_counter()
-                with stagetimer.stage("persistence"):
-                    stree.compute_persistence()
-                    diagrams = [stree.persistence_intervals_in_dimension(i)
-                                for i in range(3)]
-                torch.cuda.synchronize()
-                t2 = time.perf_counter()
-        finally:
-            stagetimer.ENABLED, cuda_flood.flood_min = False, k1
-        launches = {"fps": cuda_fps.LAUNCHES, "flood": cuda_flood.LAUNCHES}
-        if few_count:
-            launches["flood_few"] = cuda_flood.FEW_LAUNCHES
-        log(f"few random mode num_rand {num_rand} launches (one run): "
-            f"{launches}")
-        if (launches["fps"], launches["flood"], len(calls)) != (1, 4, 4) or (
-                few_count and launches["flood_few"] != 4):
-            raise AssertionError("random mode must launch K2 once and K1's "
-                                 f"few-sample instances once a pass: {launches}")
-        split = {}
-        for name, sec in re.findall(
-                r"^\[flooder-timing\] (.+): ([0-9.]+)s$", buf.getvalue(),
-                flags=re.M):
-            split[name] = round(split.get(name, 0.0) + float(sec), 4)
-        vals = np.concatenate(stree._filt)
-        if not np.isfinite(vals).all():
-            raise AssertionError(f"random mode {num_rand}: non-finite values")
-        if stree.make_filtration_non_decreasing():
-            raise AssertionError(f"random mode {num_rand}: not monotone")
-        if int(np.isinf(diagrams[0][:, 1]).sum()) != 1:
-            raise AssertionError(f"random mode {num_rand}: H0 must have one "
-                                 "essential class")
-        bars = [len(d) for d in diagrams]
+        what = f"few random mode num_rand {num_rand}"
+        run = random_mode_run(X, N_LANDMARKS, num_rand, 3, what)
         passes = []
-        for d, (ops, (out_k, stats_k)) in enumerate(calls):
-            ms = cuda_ms(lambda: k1(*ops), 5)
-            rec, text = launch_text(ops, stats_k, num_rand)
-            # K1's plain version on whole blocks: the longest and a middle one
-            lens = (ops[-2][1:] - ops[-2][:-1]).cpu().numpy()
-            by_len = np.argsort(-lens, kind="stable")
-            blocks = [int(by_len[0]), int(by_len[int(np.count_nonzero(lens)) // 2])]
-            sliced, rows = block_slice(ops, blocks)
-            out_p, stats_p = cuda_flood.flood_pairs_reference(*sliced)
-            nr = ops[0].shape[1]
-            stats_rows = stats_k.reshape(-1, nr, 2)[torch.as_tensor(
-                blocks, device=dev)].reshape(-1, 2)
-            what = f"random mode {num_rand}, pass {d}, blocks {blocks}"
-            if not torch.equal(stats_rows, stats_p):
-                raise AssertionError(f"{what}: counts differ from the plain "
-                                     "version's")
-            err = flood_d2_diff(out_k[rows], out_p, what)
-            passes.append(dict(dim=d, simplices=int(stree._verts[d].shape[0]),
-                               ms=ms, max_abs_err_on_blocks=err, **rec))
-            log(f"few random mode num_rand {num_rand}, pass {d} "
-                f"({passes[-1]['simplices']} simplices): kernel {ms:.3f} ms "
-                f"(mean of 5 after a warm-up, the pass's own operands); "
-                f"{text}; plain version on blocks {blocks} "
-                f"({sliced[-1].numel()} pairs): max |d2 diff| {err}, every "
-                "count equal")
+        for d, (ops, (out_k, stats_k)) in enumerate(run["calls"]):
+            ms = cuda_ms(lambda: cuda_flood.flood_min(*ops), 5)
+            rec, text = launch_record(ops, stats_k, num_rand, env)
+            err, blocks, pairs = plain_on_blocks(
+                ops, out_k, stats_k, f"random mode {num_rand}, pass {d}")
+            passes.append(dict(dim=d, simplices=run["simplices"][d], ms=ms,
+                               max_abs_err_on_blocks=err, **rec))
+            log(f"{what}, pass {d} ({passes[-1]['simplices']} simplices): "
+                f"kernel {ms:.3f} ms (mean of 5 after a warm-up, the pass's "
+                f"own operands); {text}; plain version on blocks {blocks} "
+                f"({pairs} pairs): max |d2 diff| {err}, every count equal")
         out["random_mode"][str(num_rand)] = dict(
-            passes=passes, launches=launches, complex_s=t1 - t0,
-            persistence_s=t2 - t1, stage_split_s=split, bars=bars)
+            passes=passes, **{k: run[k] for k in (
+                "launches", "complex_s", "persistence_s", "stage_split_s",
+                "bars")})
         log(f"few random mode {N_POINTS} x {N_LANDMARKS}, num_rand "
-            f"{num_rand}: complex {[int(v.shape[0]) for v in stree._verts]} "
-            f"simplices, finite and monotone, one essential H0 class; "
-            f"diagram bars {bars}; flood_complex {t1 - t0:.4f}s, persistence "
-            f"{t2 - t1:.4f}s (host clock, fenced stages); K1 "
+            f"{num_rand}: complex {run['simplices']} simplices, finite and "
+            f"monotone, one essential H0 class; diagram bars {run['bars']}; "
+            f"flood_complex {run['complex_s']:.4f}s, persistence "
+            f"{run['persistence_s']:.4f}s (host clock, fenced stages); K1 "
             f"{sum(p['ms'] for p in passes):.3f} ms over the passes")
-        log(f"few random mode num_rand {num_rand} stage split (s, fenced; "
-            f"nested stages overlap): {json.dumps(split)}")
-        del calls, stree, diagrams, ops, out_k, stats_k, sliced, rows
+        log(f"{what} stage split (s, fenced; nested stages overlap): "
+            f"{json.dumps(run['stage_split_s'])}")
+        del run, ops, out_k, stats_k
     del X
 
     # ---- the 100k x 300 cut against the dense engine ------------------------
@@ -1477,8 +1786,10 @@ def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=42,
                     help="seed of the wide phase's uniform clouds")
-    ap.add_argument("--only", choices=["few"],
-                    help="build and run this phase alone, and print its "
+    ap.add_argument("--only", choices=["few", "few_wide"],
+                    help="build and run this phase alone (few_wide: K1's "
+                    "few-sample instances past 8 coordinates, the seeded "
+                    "grid and random mode on the 10-D path), and print its "
                     "numbers as the last line (no result line): from the "
                     "root of another checkout through runpy, it times that "
                     "checkout's K1 on the same inputs")
@@ -1537,8 +1848,15 @@ def main(argv=None):
             f"the loop, local accesses in it, local accesses in the kernel) "
             f"{loops if loops is not None else 'cuobjdump not found'}")
     for name in ("flood", "fps", "flood_stats"):
-        log(f"SASS digests {name}: "
-            f"{json.dumps(sass_digests(build.cuda_library(name)))}")
+        digests = sass_digests(build.cuda_library(name))
+        log(f"SASS digests {name}: {json.dumps(digests)}")
+        if digests is not None:
+            ref = REFERENCE_DIGESTS[name]
+            same = [k for k in ref if digests.get(k) == ref[k]]
+            log(f"SASS digests {name} against REFERENCE_DIGESTS: {len(same)} "
+                f"of {len(ref)} instances equal; differ or missing "
+                f"{sorted(set(ref) - set(same))}; new "
+                f"{sorted(set(digests) - set(ref))}")
     t0 = time.perf_counter()
     build.load_persistence()
     log(f"native persistence build: {time.perf_counter() - t0:.2f}s")
@@ -1547,6 +1865,18 @@ def main(argv=None):
         few = few_phase()
         log(f"few phase: {time.perf_counter() - t_phase:.1f}s")
         print(json.dumps({"few": few}), flush=True)
+        return 0
+    if args.only == "few_wide":
+        t_phase = time.perf_counter()
+        env = k1_env()
+        grid = few_wide_grid(env)
+        X10 = ft.generate_swiss_cheese_points(
+            WIDE_POINTS, rect_min=(0.0,) * WIDE_DIM,
+            rect_max=(1.0,) * WIDE_DIM, k=6, seed=42, device=dev)[0]
+        random_mode = wide_random_mode(X10, env)
+        log(f"few_wide: {time.perf_counter() - t_phase:.1f}s")
+        print(json.dumps({"wide_grid": grid, "random_mode": random_mode}),
+              flush=True)
         return 0
 
     # ---- K2 against its plain version -------------------------------------
@@ -2111,6 +2441,7 @@ def main(argv=None):
             "mesh": mesh,
             "wide_10d_path": wide["k1"],
             "wide_10d_path_launches": wide["path"]["launches"]["flood"],
+            "wide_10d_random_mode": wide["random_mode"],
             "max_abs_err_wide_cut_vs_dense": wide["cut_err"],
         },
         {

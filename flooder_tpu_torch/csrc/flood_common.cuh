@@ -51,7 +51,9 @@
 // first coordinate t * t), as the template instances do: it differs from
 // the plain versions' separately rounded sums by the rounding of two
 // summation orders, at most 2 * dim * 2^-24 * d2. K3's wide instance uses
-// the same forms, so its output equals K1's bit for bit.
+// the same forms, so its output equals K1's bit for bit; so do K1's
+// few-sample instances past 8 coordinates (flood.cu), whose register tiles
+// read samples FEW_RT or 64 floats a row (wide_accumulate's XS).
 
 #pragma once
 
@@ -556,13 +558,12 @@ __device__ __forceinline__ void wide_first(float (&a)[WIDE_TM][WIDE_TN],
 }
 
 // The pair loop: a[k][i] = fma(t, t, a[k][i]) over n more coordinate rows,
-// WIDE_XS floats apart for the samples and YS for the witnesses.
-template <int YS>
+// XS floats apart for the samples and YS for the witnesses.
+template <int YS, int XS = WIDE_XS>
 __device__ __forceinline__ void wide_accumulate(
     float (&a)[WIDE_TM][WIDE_TN], const float *x, const float *y, int n) {
 #pragma unroll 2
-  for (const float *end = x + n * WIDE_XS; x != end;
-       x += WIDE_XS, y += YS) {
+  for (const float *end = x + n * XS; x != end; x += XS, y += YS) {
     float xv[WIDE_TM], yv[WIDE_TN];
     wide_load8(x, 32, xv);
     wide_load8(y, 16, yv);
@@ -574,6 +575,15 @@ __device__ __forceinline__ void wide_accumulate(
         a[k][i] = __fmaf_rn(t, t, a[k][i]);
       }
   }
+}
+
+// mn[k] = min(mn[k], a[k][i]) over the register tile's witness columns i.
+__device__ __forceinline__ void wide_fold(float (&mn)[WIDE_TM],
+                                          const float (&a)[WIDE_TM][WIDE_TN]) {
+#pragma unroll
+  for (int k = 0; k < WIDE_TM; ++k)
+#pragma unroll
+    for (int i = 0; i < WIDE_TN; ++i) mn[k] = fminf(mn[k], a[k][i]);
 }
 
 // mn[k] = min(mn[k], d2 from this thread's sample k to its witness columns
@@ -608,10 +618,7 @@ __device__ __forceinline__ void wide_min_over_unit(
         wide_accumulate<WIDE_STEP>(a, x, y, kd);
       }
     }
-#pragma unroll
-    for (int k = 0; k < WIDE_TM; ++k)
-#pragma unroll
-      for (int i = 0; i < WIDE_TN; ++i) mn[k] = fminf(mn[k], a[k][i]);
+    wide_fold(mn, a);
   }
 }
 

@@ -137,8 +137,11 @@ def build_cuda(names: Iterable[str]) -> None:
         raise RuntimeError("\n".join(errors))
 
 
+# Kernel names in the libraries; a name that contains another comes first
+# (``flood_min_few_wide`` before ``flood_min_few``).
 KERNEL_NAMES = ("flood_min_kernel", "flood_stats_kernel", "fps_loop",
-                "flood_min_wide", "flood_stats_wide", "flood_min_few")
+                "flood_min_wide", "flood_stats_wide", "flood_min_few_wide",
+                "flood_min_few_slabs", "flood_min_few")
 
 
 _TYPE_ARGS = {"f": "float", "d": "double"}
@@ -148,7 +151,8 @@ def kernel_instance(mangled: str) -> str:
     """A kernel's readable name with its template arguments, from its
     mangled name, e.g. ``fps_loop<double,3>``; K2's runtime-width instance
     (width argument 0) reads ``fps_loop<float,wide>``, and the flood
-    kernels' runtime-width instances are ``flood_min_wide`` and
+    kernels' runtime-width instances are ``flood_min_wide``,
+    ``flood_min_few_wide``, ``flood_min_few_slabs`` and
     ``flood_stats_wide``. Unknown names stay unchanged."""
     known = [k for k in KERNEL_NAMES if k in mangled]
     if not known:

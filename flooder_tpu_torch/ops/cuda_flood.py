@@ -24,15 +24,18 @@ bucketing and transposed witness storage. ``active`` is a bool and
 
 Few samples a simplex (random mode, coarse grids): up to 384 samples a
 simplex the tiles hold ``FEW_RT`` = 128 samples (``_tile_geometry``; the
-padded total is the same as with one larger tile), and at 1-8 coordinates
-those tiles take K1's few-sample instances, one warp a (simplex, tile).
+padded total is the same as with one larger tile), and those tiles take
+K1's few-sample instances at every width, one warp a (simplex, tile):
+``flood_min_few<DIM>`` at 1-8 coordinates, ``flood_min_few_wide`` at 9-16
+and ``flood_min_few_slabs`` past 16 (``k1_instance`` says which instance a
+launch takes).
 
 The kernel takes float32 clouds of any width, as the Pallas engine does:
-template instances for 1-8 coordinates and one runtime-width instance past
-8, which reads the samples coordinate-major (``kernel_samples``); its
-shared memory does not grow past 16 coordinates, so no width is capped.
-Like the template instances it sums each d^2 with one FMA a coordinate:
-its output matches ``flood_pairs_reference`` within 2 * dim * 2**-24 * d^2
+template instances for 1-8 coordinates and runtime-width instances past 8,
+which read the samples coordinate-major (``kernel_samples``); their shared
+memory does not grow past 16 coordinates, so no width is capped.
+Like the template instances they sum each d^2 with one FMA a coordinate:
+their output matches ``flood_pairs_reference`` within 2 * dim * 2**-24 * d^2
 (two fp32 summation orders), with every count and inf exact. CPU tensors run
 the plain version, and float64 and ``use_pallas=False`` take the dense
 engine (``ops/flood.py``).
@@ -60,7 +63,8 @@ BS = 8  # simplices per block
 RT = 512  # sample points per tile (at most)
 # Tiles of few-sample passes: one warp of K1's few-sample instances a tile
 FEW_RT = 128
-FEW_WARPS = 2  # its tiles a CTA
+FEW_WARPS = 2  # its tiles a CTA at 1-8 coordinates
+FEW_WIDE_WARPS = 4  # and past 8
 WCHUNK = 2048  # witnesses per work-list chunk
 SUB = 512  # witnesses per sub-chunk (the kernel's shared-memory tile)
 MORTON_BITS_TOTAL = 24
@@ -70,10 +74,13 @@ MASK = 3e18  # out-of-ball witnesses move here
 _MASKED_D2 = 1e30
 # The widest template instance of K1 and K3; past it the runtime-width one.
 KERNEL_MAX_DIM = 8
+# The widest one-slab few-sample instance; past it the slab one.
+FEW_ONE_SLAB_DIM = 16
 
-# Kernel launches through ``flood_min`` (CUDA tensors only), as counted
-# by ``flood_min_launch`` and ``flood_min_few_launch`` while they enqueue
-# them; FEW_LAUNCHES counts those of the few-sample instances alone.
+# Kernel launches through ``flood_min`` and ``flood_min_tiled`` (CUDA
+# tensors only), as counted by ``flood_min_launch`` and
+# ``flood_min_few_launch`` while they enqueue them; FEW_LAUNCHES counts
+# those of the few-sample instances alone.
 LAUNCHES = 0
 FEW_LAUNCHES = 0
 
@@ -466,10 +473,26 @@ def _check_flood_operands(operands, what: str):
 def kernel_samples(samples: torch.Tensor) -> torch.Tensor:
     """The samples as K1 and K3 read them: (S, nr, rt, dim) for the template
     instances, a coordinate-major copy (S, nr, dim, rt) past
-    KERNEL_MAX_DIM coordinates (the runtime-width instance)."""
+    KERNEL_MAX_DIM coordinates (the runtime-width instances)."""
     if samples.shape[-1] <= KERNEL_MAX_DIM:
         return samples
     return samples.transpose(2, 3).contiguous()
+
+
+def k1_instance(rt: int, dim: int) -> str:
+    """The instance of K1 that ``flood_min`` launches on tiles of ``rt``
+    samples at ``dim`` coordinates: tiles of FEW_RT take the few-sample
+    instances (a warp a tile), other tiles the instances for tiles of up to
+    512 (a CTA a block and tile); past KERNEL_MAX_DIM the runtime-width ones
+    (the few-sample one in two forms: one 16-coordinate slab, and slabs)."""
+    few = rt == FEW_RT
+    if not few:
+        return ("flood_min_wide" if dim > KERNEL_MAX_DIM
+                else f"flood_min_kernel<{dim}>")
+    if dim <= KERNEL_MAX_DIM:
+        return f"flood_min_few<{dim}>"
+    return ("flood_min_few_wide" if dim <= FEW_ONE_SLAB_DIM
+            else "flood_min_few_slabs")
 
 
 def _cta_order(blk_ptr: torch.Tensor) -> torch.Tensor:
@@ -495,11 +518,13 @@ def _lib():
     lib.flooder_cuda_error_string.argtypes = [ctypes.c_int]
     lib.flood_sub.restype = ctypes.c_int
     lib.flood_sub.argtypes = []
-    lib.flood_few_warps.restype = ctypes.c_int
-    lib.flood_few_warps.argtypes = []
-    if lib.flood_sub() != SUB or lib.flood_few_warps() != FEW_WARPS:
-        raise RuntimeError("csrc/flood.cu was built with another SUB or "
-                           "FEW_WARPS")
+    for fn in (lib.flood_few_warps, lib.flood_few_wide_warps):
+        fn.restype = ctypes.c_int
+        fn.argtypes = []
+    if (lib.flood_sub(), lib.flood_few_warps(), lib.flood_few_wide_warps()
+            ) != (SUB, FEW_WARPS, FEW_WIDE_WARPS):
+        raise RuntimeError("csrc/flood.cu was built with another SUB, "
+                           "FEW_WARPS or FEW_WIDE_WARPS")
     return lib
 
 
@@ -508,22 +533,41 @@ def flood_min(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
     """K1: min d^2 from every sample to the in-ball witnesses.
 
     CPU tensors go to ``flood_pairs_reference``; CUDA tensors launch
-    ``csrc/flood.cu`` (blocks longest work-list first) or raise: tiles of
-    FEW_RT samples at 1-8 coordinates its few-sample instances (a warp a
-    tile), other tiles its other instances. Returns (out (S, nr, rt),
-    stats).
+    ``csrc/flood.cu`` (blocks longest work-list first) or raise: the
+    instance ``k1_instance(rt, dim)`` names, so tiles of FEW_RT samples
+    take its few-sample instances (a warp a tile) at every width. Returns
+    (out (S, nr, rt), stats).
     """
     operands = (samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
                 tile_hi, ub2, blk_ptr, blk_chunks)
+    rt, dim = samples.shape[2:]
+    return _flood_min(operands, k1_instance(rt, dim).startswith(
+        "flood_min_few"))
+
+
+def flood_min_tiled(samples, witnesses, sub_lo, sub_hi, centers, radii,
+                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks):
+    """K1 through its instances for tiles of up to 512 samples (a CTA a
+    block and tile) at any tile size, tiles of FEW_RT samples too: a second
+    route for those tiles, which no entry point takes; the card checks hold
+    the few-sample instances to it (the same output bit for bit, the same
+    counts). CPU tensors go to ``flood_pairs_reference``."""
+    return _flood_min((samples, witnesses, sub_lo, sub_hi, centers, radii,
+                       tile_lo, tile_hi, ub2, blk_ptr, blk_chunks), False)
+
+
+def _flood_min(operands, few: bool):
+    """Launch K1's few-sample (``few``) or tiled launch on CUDA operands;
+    CPU operands go to the plain version."""
+    samples = operands[0]
     if samples.device.type == "cpu":
         return flood_pairs_reference(*operands)
     global LAUNCHES, FEW_LAUNCHES
     s_total, nr, rt, dim, n_blk = _check_flood_operands(operands,
                                                         "flood_min")
     lib = _lib()
-    few = rt == FEW_RT and dim <= KERNEL_MAX_DIM
     launch = lib.flood_min_few_launch if few else lib.flood_min_launch
-    cta_order = _cta_order(blk_ptr)
+    cta_order = _cta_order(operands[9])
     out = torch.empty((s_total, nr, rt), dtype=torch.float32,
                       device=samples.device)
     stats = torch.empty((n_blk * nr, 2), dtype=torch.int64,

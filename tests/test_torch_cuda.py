@@ -328,6 +328,49 @@ def test_flood_kernel_few_samples_match_plain(cuda_device, dim, r_count):
     assert cuda_flood.kernel_operations(stats_k)[0] > 0
 
 
+@pytest.mark.parametrize("r_count", [1, 64, 126, 256, 384])
+@pytest.mark.parametrize("dim", [9, 12, 16, 17, 37, 38, 40, 64])
+def test_flood_kernel_few_samples_past_8_coordinates(cuda_device, dim,
+                                                      r_count):
+    """K1's few-sample instances past 8 coordinates (flood_min_few_wide at
+    9-16, flood_min_few_slabs past 16: tiles of 128 samples, a warp a tile;
+    one to three tiles a simplex) in one few-sample launch: against the
+    plain version (the bar of assert_within_wide_bar, inf in place, +inf
+    from 38 coordinates on, every count equal), against flood_min_wide on
+    the same tiles (``flood_min_tiled``: bit for bit, the same counts) and
+    against K3's runtime-width instance (bit for bit, its computed tiles
+    equal to K1's units)."""
+    ops = k3_case_operands(cuda_device, dim=dim, r_count=r_count)
+    assert ops[0].shape[1:3] == (-(-r_count // cuda_flood.FEW_RT),
+                                 cuda_flood.FEW_RT)
+    assert cuda_flood.k1_instance(cuda_flood.FEW_RT, dim) == (
+        "flood_min_few_wide" if dim <= 16 else "flood_min_few_slabs")
+    before = (cuda_flood.LAUNCHES, cuda_flood.FEW_LAUNCHES)
+    out_k, stats_k = cuda_flood.flood_min(*ops)
+    torch.cuda.synchronize()
+    assert (cuda_flood.LAUNCHES, cuda_flood.FEW_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
+    assert_within_wide_bar(out_k, out_p, dim)
+    assert torch.equal(stats_k, stats_p)
+    masked = out_p >= cuda_flood._MASKED_D2
+    assert masked.any() and not masked.all()
+    # a unit with no in-ball witness folds in a finite masked d2 below 38
+    # coordinates, +inf from 38 on
+    assert bool((masked & torch.isfinite(out_p)).any()) == (dim < 38)
+    units = cuda_flood.kernel_operations(stats_k)[0]
+    assert units > 0
+    before = cuda_flood.FEW_LAUNCHES
+    out_t, stats_t = cuda_flood.flood_min_tiled(*ops)
+    torch.cuda.synchronize()
+    assert cuda_flood.FEW_LAUNCHES == before
+    assert torch.equal(out_t, out_k)
+    assert torch.equal(stats_t, stats_k)
+    out_3, stats_3 = cuda_flood_stats.flood_min_stats(*ops)
+    assert torch.equal(out_3, out_k)
+    assert stats_3[:, cuda_flood_stats.COL_TILES].sum().item() == units
+
+
 def test_landmarks_on_another_device_are_refused_on_card(cuda_device):
     """As flooder_tpu: CPU landmarks with a CUDA cloud raise before any
     move; numpy landmarks, and a CPU cloud and CPU landmarks with

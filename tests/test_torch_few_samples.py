@@ -2,11 +2,14 @@
 samples, a warp a tile on the card) through the port on the CPU, where K1's
 plain version runs.
 
-Random mode at 1 and 64 samples a simplex against flooder_tpu (every
-dimension pass 0..3), and K1's plain version at 1, 64, 126 and 256 samples
-a simplex (one tile, and two tiles of 128 at 256) against the port's dense
-engine on seeded simplices. Parity bar: the same simplices, values within
-1e-5, inf exactly where the reference has inf."""
+Which instance a launch takes (``k1_instance``: tiles of 128 samples the
+few-sample ones at every width); random mode at 1 and 64 samples a simplex
+against flooder_tpu (every dimension pass 0..3) and, on a 10-D cloud, at
+64 and 256 (the few-sample instance past 8 coordinates on the card); and
+K1's plain version at 1, 64, 126 and 256 samples a simplex at 3
+coordinates, and at 1-384 at 10 (one to three tiles of 128), against the
+port's dense engine on seeded simplices. Parity bar: the same simplices,
+values within 1e-5, inf exactly where the reference has inf."""
 
 import numpy as np
 import pytest
@@ -39,6 +42,23 @@ def _assert_same(ref, got, tol=1e-5):
             assert abs(got[key] - val) < tol, (key, got[key], val)
 
 
+@pytest.mark.parametrize("dim", [3, 8, 9, 10, 16, 17, 64])
+def test_tiles_of_128_samples_take_the_few_sample_launch(dim):
+    """Tiles of FEW_RT samples take the few-sample instances at every width
+    (past 8 coordinates the runtime-width ones: one slab up to 16, slabs
+    past it); tiles of 256-512 samples take the instances that walk a
+    block's simplices in a CTA."""
+    few = cf.k1_instance(cf.FEW_RT, dim)
+    assert few == {3: "flood_min_few<3>", 8: "flood_min_few<8>",
+                   17: "flood_min_few_slabs",
+                   64: "flood_min_few_slabs"}.get(dim, "flood_min_few_wide")
+    for rt in (256, 384, cf.RT):
+        other = cf.k1_instance(rt, dim)
+        assert not other.startswith("flood_min_few")
+        assert other == ("flood_min_wide" if dim > cf.KERNEL_MAX_DIM
+                         else f"flood_min_kernel<{dim}>")
+
+
 @pytest.mark.parametrize("num_rand", [1, 64])
 def test_random_mode_matches_flooder_tpu(num_rand):
     """flooder_tpu.flood_complex on the CPU (as tests/test_torch_dims.py
@@ -54,16 +74,41 @@ def test_random_mode_matches_flooder_tpu(num_rand):
     _assert_same(ref, ft.flood_complex(X, 60, device="cpu", **kw))
 
 
-@pytest.mark.parametrize("r_count", [1, 64, 126, 256])
-def test_plain_k1_matches_dense_engine_at_few_samples(r_count):
+@pytest.mark.parametrize("num_rand", [64, 256])
+def test_10d_random_mode_matches_flooder_tpu(num_rand):
+    """flooder_tpu.flood_complex on the CPU against the port's kernel route
+    in random mode on a 10-D cloud (as tests/test_torch_dims.py runs its 9-D
+    and 12-D clouds): passes 0..3, one or two tiles of 128 slots a simplex
+    in each, the few-sample instance past 8 coordinates on the card."""
+    pts = np.random.default_rng(10).random((800, 10)).astype(np.float32)
+    kw = dict(num_rand=num_rand, points_per_edge=None, start_idx=0,
+              max_dimension=3)
+    np.random.seed(3)
+    ref = fj.flood_complex(pts, 12, **kw)
+    assert any(len(s) == 4 and np.isfinite(v) for s, v in ref.items())
+    rt = cf._tile_geometry(num_rand)[0]
+    assert cf.k1_instance(rt, 10) == "flood_min_few_wide"
+    np.random.seed(3)
+    _assert_same(ref, ft.flood_complex(pts, 12, device="cpu", **kw))
+
+
+@pytest.mark.parametrize("dim,r_count", [
+    pytest.param(3, 1, id="1"), pytest.param(3, 64, id="64"),
+    pytest.param(3, 126, id="126"), pytest.param(3, 256, id="256"),
+    pytest.param(10, 1, id="10d-1"), pytest.param(10, 64, id="10d-64"),
+    pytest.param(10, 126, id="10d-126"), pytest.param(10, 256, id="10d-256"),
+    pytest.param(10, 384, id="10d-384")])
+def test_plain_k1_matches_dense_engine_at_few_samples(dim, r_count):
     """K1's plain version (the kernel engine on CPU tensors) against the
-    dense engine on 24 seeded tetrahedra of a 3,000-point cloud, with balls
-    that cut sub-chunks and some that hold no witness: the min distances of
-    every (simplex, sample) within 1e-5, inf alike."""
-    rng = np.random.default_rng(r_count)
-    X = torch.from_numpy(rng.random((3000, 3)).astype(np.float32))
+    dense engine on 24 seeded tetrahedra of a 3,000-point cloud of 3 or 10
+    coordinates, with balls that cut sub-chunks and some that hold no
+    witness: the min distances of every (simplex, sample) within 1e-5, inf
+    alike."""
+    rng = np.random.default_rng(r_count if dim == 3 else (dim, r_count))
+    X = torch.from_numpy(rng.random((3000, dim)).astype(np.float32))
+    spread = 0.3 if dim == 3 else 0.6  # 10-D balls of 0.3 hold no witness
     verts = torch.from_numpy(
-        (rng.random((24, 1, 3)) + (rng.random((24, 4, 3)) - 0.5) * 0.3)
+        (rng.random((24, 1, dim)) + (rng.random((24, 4, dim)) - 0.5) * spread)
         .astype(np.float32))
     centers, radii = simplex_bounding_balls(verts)
     radii[::5] = 1e-4  # balls that hold no witness
@@ -72,9 +117,13 @@ def test_plain_k1_matches_dense_engine_at_few_samples(r_count):
     rt, nr, _ = cf._tile_geometry(r_count)
     assert (rt, nr) == (cf.FEW_RT, -(-r_count // cf.FEW_RT))
 
-    got = cf.CudaFloodEngine(X).min_distances(verts, w, centers, radii)
+    engine = cf.CudaFloodEngine(X)
+    got = engine.min_distances(verts, w, centers, radii)
     want = DenseFloodEngine(X, 256).min_distances(verts, w, centers, radii)
     assert got.shape == want.shape == (24, r_count)
     assert torch.isinf(want).any() and torch.isfinite(want).any()
+    if dim > cf.KERNEL_MAX_DIM:  # admitted units partly out of their balls
+        units, inball = cf.kernel_operations(engine.last_stats)
+        assert 0 < inball < units * cf.SUB * rt
     cells = lambda t: {ij: v for ij, v in np.ndenumerate(t.numpy())}  # noqa: E731
     _assert_same(cells(want), cells(got))
