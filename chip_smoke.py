@@ -822,10 +822,9 @@ def random_mode_run(X, landmarks, num_rand, top_dim, what):
                                      max_dimension=top_dim,
                                      return_simplex_tree=True)
             t1 = time.perf_counter()
-            with stagetimer.stage("persistence"):
-                stree.compute_persistence()
-                diagrams = [stree.persistence_intervals_in_dimension(i)
-                            for i in range(min(top_dim, 3))]
+            stree.compute_persistence()
+            diagrams = [stree.persistence_intervals_in_dimension(i)
+                        for i in range(min(top_dim, 3))]
             torch.cuda.synchronize()
             t2 = time.perf_counter()
     finally:
@@ -1379,10 +1378,9 @@ def wide_phase(seed):
                                          points_per_edge=ppe,
                                          return_simplex_tree=True)
                 t1 = time.perf_counter()
-                with stagetimer.stage("persistence"):
-                    stree.compute_persistence()
-                    diagrams = [stree.persistence_intervals_in_dimension(i)
-                                for i in range(WIDE_TOP_DIM)]
+                stree.compute_persistence()
+                diagrams = [stree.persistence_intervals_in_dimension(i)
+                            for i in range(WIDE_TOP_DIM)]
                 torch.cuda.synchronize()
                 t2 = time.perf_counter()
         finally:
@@ -1953,10 +1951,9 @@ def main(argv=None):
     def main_path():
         stree = ft.flood_complex(X, N_LANDMARKS, points_per_edge=PPE,
                                  return_simplex_tree=True)
-        with stagetimer.stage("persistence"):
-            stree.compute_persistence()
-            diagrams = [stree.persistence_intervals_in_dimension(i)
-                        for i in range(3)]
+        stree.compute_persistence()
+        diagrams = [stree.persistence_intervals_in_dimension(i)
+                    for i in range(3)]
         torch.cuda.synchronize()
         return stree, diagrams
 

@@ -7,7 +7,8 @@ table) and flag surface, with the devices ``cuda``, ``cuda:N`` and
 ``cpu`` (default ``cuda``; without CUDA it fails and says to pass
 ``--device cpu``). Each step is fenced and its device peak memory read by
 ``StepTimer``; ``--trace-dir`` writes a ``torch.profiler`` Chrome trace of
-the Flood-complex step. Run it as ``python -m flooder_tpu_torch.cli``.
+the Flood-complex step, which carries the pipeline's stages as
+``flooder.*`` spans. Run it as ``python -m flooder_tpu_torch.cli``.
 """
 
 from __future__ import annotations
@@ -184,7 +185,8 @@ def setup_cmdline_parsing() -> argparse.ArgumentParser:
         metavar="DIR",
         type=str,
         default=None,
-        help="Write a torch.profiler Chrome trace of the Flood-complex step",
+        help="Write a torch.profiler Chrome trace of the Flood-complex "
+        "step, with the pipeline's stages as flooder.* spans",
     )
     return p
 

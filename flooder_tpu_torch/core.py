@@ -39,6 +39,7 @@ from .ops.flood import DenseFloodEngine, simplex_bounding_balls
 from .parallel.sharding import (Mesh, MeshCudaFloodEngine, MeshFloodEngine,
                                 mesh_device)
 from .topology import DelaunayComplex, SimplexTree
+from .utils import stagetimer
 from .utils.device import DeviceLike, as_tensor
 from .utils.stagetimer import fence, stage
 
@@ -71,6 +72,7 @@ def _cached_engine(points, key, build):
         for i, (ref, k, eng) in enumerate(_ENGINE_CACHE):
             if k == key and ref() is points:
                 _ENGINE_CACHE.append(_ENGINE_CACHE.pop(i))
+                stagetimer.count("engine_cache_hit")
                 return eng
         # evict BEFORE building, so peak memory never holds CAP+1 engines
         live = [e for e in _ENGINE_CACHE if e[0]() is not None]
@@ -289,6 +291,7 @@ def flood_complex(
     Returns:
         dict mapping simplex tuples to filtration values, or a SimplexTree.
     """
+    stagetimer.new_record()
     if use_triton is not None and use_pallas is None:
         use_pallas = use_triton
     if mesh is not None:

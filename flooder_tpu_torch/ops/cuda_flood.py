@@ -56,7 +56,8 @@ from typing import Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from ..utils.stagetimer import fence, note, stage
+from ..utils import stagetimer
+from ..utils.stagetimer import fence, stage
 from .flood import _sqsum, local_samples
 
 BS = 8  # simplices per block
@@ -561,8 +562,17 @@ def _flood_min(operands, few: bool):
     CPU operands go to the plain version."""
     samples = operands[0]
     if samples.device.type == "cpu":
-        return flood_pairs_reference(*operands)
+        out, stats = flood_pairs_reference(*operands)
+    else:
+        out, stats = _launch(operands, few)
+    stagetimer.keep("k1_inball_pairs", stats, column=1)
+    return out, stats
+
+
+def _launch(operands, few: bool):
+    """K1's launch on CUDA operands: (out, stats)."""
     global LAUNCHES, FEW_LAUNCHES
+    samples = operands[0]
     s_total, nr, rt, dim, n_blk = _check_flood_operands(operands,
                                                         "flood_min")
     lib = _lib()
@@ -628,6 +638,8 @@ class CudaFloodEngine:
         self.dim = dim
         self._bits = max(1, min(10, MORTON_BITS_TOTAL // dim))
         total = witness_total(n)
+        stagetimer.count("witnesses_real", n)
+        stagetimer.count("witnesses_padded", total)
         pts = points
         if total != n:
             # cyclic padding: duplicates are idempotent under min and keep
@@ -710,11 +722,6 @@ class CudaFloodEngine:
         with stage("prep:worklist"):
             blk_ptr, blk_chunks = _worklist(active, dist)
             fence(blk_chunks)
-        note(
-            f"worklist: {blk_chunks.numel()} pairs over "
-            f"{active.shape[0]} blocks x {active.shape[1]} chunks, "
-            f"nr={nr} rt={rt} s_total={s_total}"
-        )
         operands = (
             samples.contiguous(), self.witnesses, self.sub_lo, self.sub_hi,
             centers.contiguous(), radii.contiguous(),

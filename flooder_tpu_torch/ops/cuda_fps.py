@@ -25,6 +25,7 @@ import functools
 
 import torch
 
+from ..utils import stagetimer
 from .cuda_flood import hilbert_codes, morton_codes
 from .fps import farthest_point_sampling
 
@@ -150,6 +151,7 @@ def fps_kernel_run(prep, n_samples: int) -> torch.Tensor:
     LAUNCHES += launched.value
     _raise_on(lib, rc, "fps kernel launch")
     last_visits = visits
+    stagetimer.keep("k2_chunk_visits", visits)
     return out
 
 

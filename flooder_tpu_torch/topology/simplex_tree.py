@@ -18,6 +18,7 @@ from typing import Dict, Iterable, List, Optional, Sequence, Tuple
 
 import numpy as np
 
+from ..utils.stagetimer import stage
 from ._keys import find_rows, lex_order, row_keys
 from .persistence import reduce_filtration
 
@@ -312,6 +313,11 @@ class SimplexTree:
         reduction is over Z/2 (diagrams over different fields coincide for
         the geometric complexes this library builds in low dimension).
         """
+        with stage("persistence"):
+            self._compute_persistence(homology_coeff_field, min_persistence)
+
+    def _compute_persistence(self, homology_coeff_field: int,
+                             min_persistence: float) -> None:
         if homology_coeff_field != 2:
             import warnings
 
@@ -320,7 +326,7 @@ class SimplexTree:
                 "the reduction runs over Z/2; diagrams can differ in the "
                 "presence of torsion",
                 RuntimeWarning,
-                stacklevel=2,
+                stacklevel=3,
             )
         self._flush()
         self._min_persistence = float(min_persistence)
@@ -414,13 +420,15 @@ class SimplexTree:
     ):
         """Compute and return the diagram as [(dim, (birth, death)), ...],
         sorted by decreasing persistence (gudhi convention)."""
-        self.compute_persistence(homology_coeff_field, min_persistence)
-        p = self._diagram()
-        pers = p[:, 2] - p[:, 1]
-        order = np.argsort(-pers, kind="stable")
-        return [
-            (int(p[i, 0]), (float(p[i, 1]), float(p[i, 2]))) for i in order
-        ]
+        with stage("persistence"):
+            self._compute_persistence(homology_coeff_field, min_persistence)
+            p = self._diagram()
+            pers = p[:, 2] - p[:, 1]
+            order = np.argsort(-pers, kind="stable")
+            return [
+                (int(p[i, 0]), (float(p[i, 1]), float(p[i, 2])))
+                for i in order
+            ]
 
     def persistence_intervals_in_dimension(self, dimension: int) -> np.ndarray:
         p = self._diagram()
