@@ -156,7 +156,7 @@ PEAK_FP64 = 34e12
 L2_BYTES = 50e6  # H100 L2 cache (NVIDIA data sheet)
 FLOOD_OPS_PER_PAIR = 9  # 3 sub, 3 mul, 2 add, 1 min per in-ball pair (3-D)
 # fp32 instructions K1 issues per in-ball pair: the inner loop of
-# flood_min_kernel<3> in SASS (cuobjdump -sass of build/flooder_tpu_torch/
+# flood_min_few<3> in SASS (cuobjdump -sass of build/flooder_tpu_torch/
 # libflood.so) holds 48 FADD, 16 FMUL, 32 FFMA and 16 FMNMX for 16 pairs
 # (4 witnesses x 4 samples), i.e. 3 sub, 1 mul, 2 FMA and 1 min a pair; its
 # issue floor is that count over 128 fp32 lanes per SM at the max SM clock.
@@ -231,14 +231,6 @@ REFERENCE_DIGESTS = {
         "flood_min_few<3>": "ab610fa739fa",
         "flood_min_few<2>": "2832d1d71fba",
         "flood_min_few<1>": "f4304b0aa3ce",
-        "flood_min_kernel<8>": "475e3a84b9b0",
-        "flood_min_kernel<7>": "b95d9b5fcb2a",
-        "flood_min_kernel<6>": "ed27c15613e9",
-        "flood_min_kernel<5>": "532678c958f2",
-        "flood_min_kernel<4>": "e5ad70430529",
-        "flood_min_kernel<3>": "7358e95274b5",
-        "flood_min_kernel<2>": "7af48e90aacb",
-        "flood_min_kernel<1>": "d7e52a1200e8",
         "flood_min_wide": "f20020c5e5ae"},
     "fps": {
         "fps_loop<float,8>": "c47e0cece738",
@@ -684,15 +676,14 @@ def k1_launch_shape(ops, tiled=False):
     """(instance, CTAs, threads a CTA) of K1's launch on these operands: the
     instance ``cuda_flood.k1_instance`` names (a checkout without it: the
     few-sample instance for tiles of FEW_RT samples at 1-8 coordinates, else
-    the instance for tiles of up to 512), or with ``tiled`` the latter, as
-    ``cuda_flood.flood_min_tiled`` launches it."""
+    the instance for tiles of up to 512), or with ``tiled`` flood_min_wide,
+    as ``cuda_flood.flood_min_tiled`` launches it past 8 coordinates."""
     from flooder_tpu_torch.ops import cuda_flood
 
     s_total, nr, rt, dim = ops[0].shape
     n_blk = s_total // cuda_flood.BS
     if tiled:
-        inst = ("flood_min_wide" if dim > cuda_flood.KERNEL_MAX_DIM
-                else f"flood_min_kernel<{dim}>")
+        inst = "flood_min_wide"
     elif hasattr(cuda_flood, "k1_instance"):
         inst = cuda_flood.k1_instance(rt, dim)
     elif dim > cuda_flood.KERNEL_MAX_DIM:
@@ -734,8 +725,6 @@ def k1_dyn_smem(inst, dim):
     from flooder_tpu_torch.native import build
     from flooder_tpu_torch.ops import cuda_flood
 
-    if inst == "flood_min_kernel<8>":
-        return cuda_flood.SUB * 8 * 4  # its raw buffer
     name = {"flood_min_wide": "flood_wide_smem_bytes",
             "flood_min_few_wide": "flood_few_wide_smem_bytes",
             "flood_min_few_slabs": "flood_few_wide_smem_bytes"}.get(inst)
@@ -1348,7 +1337,7 @@ def wide_phase(seed):
         k=6, seed=42, device=dev)[0]
     k1 = cuda_flood.flood_min
     per_simplex = {p: int(np.prod(cuda_flood._tile_geometry(
-        _grid_host(p, WIDE_TOP_DIM)[0].shape[0])[:2]))
+        _grid_host(p, WIDE_TOP_DIM)[0].shape[0], WIDE_DIM)[:2]))
         for p in (WIDE_PPE_ASKED,) + WIDE_PPE_CUTS}
 
     def wide_path(ppe):
@@ -1818,23 +1807,22 @@ def main(argv=None):
     build.build_cuda(["flood", "fps", "flood_stats"])
     log(f"kernel build: {time.perf_counter() - t0:.2f}s wall for flood, fps, "
         f"flood_stats in parallel; per source {build.BUILD_SECONDS}")
-    raw8 = cuda_flood.SUB * 8 * 4  # K1's and K3's raw buffer at DIM 8
-    # (rt, kernel, threads a CTA, dynamic shared bytes; K3 at nr 10); an
-    # older checkout (--only few from its root) has no few-sample instances
+    raw8 = cuda_flood.SUB * 8 * 4  # K3's raw buffer at DIM 8
+    # (rt, kernel, threads a CTA, dynamic shared bytes; K3 at nr 39, the main
+    # path's 4,960 samples a simplex); an older checkout (--only few from its
+    # root) has no few-sample instances
     few_threads = 32 * getattr(cuda_flood, "FEW_WARPS", 1)
     occupancy_of = {
-        "flood": [(512, "flood_min_kernel", 128,
-                   lambda d: raw8 if d == 8 else 0),
-                  (128, "flood_min_few", few_threads, lambda d: 0)],
-        "flood_stats": [(512, "flood_stats_kernel", 256, lambda d: (
-            10 * 512 + 8 * 10) * 4 + (raw8 if d == 8 else 0))],
+        "flood": [(128, "flood_min_few", few_threads, lambda d: 0)],
+        "flood_stats": [(128, "flood_stats_kernel", 256, lambda d: (
+            39 * 128 + 8 * 39) * 4 + (raw8 if d == 8 else 0))],
     }
     for name, text in build.BUILD_LOG.items():
         rows = build.ptxas_kernels(text)
         log(f"ptxas {name}: (kernel, registers, spill-store bytes, static "
             f"smem bytes) {rows}")
         for rt, *of in occupancy_of.get(name, ()):
-            log(f"occupancy of {of[0]} at rt {rt} (K3 at nr 10), derived "
+            log(f"occupancy of {of[0]} at rt {rt} (K3 at nr 39), derived "
                 "from ptxas: (kernel, shared bytes a CTA, CTAs an SM, warps "
                 f"an SM) {flood_occupancy(rows, *of)}")
     log(f"occupancy of the runtime-width instances, derived from ptxas: "
@@ -2024,10 +2012,10 @@ def main(argv=None):
             f"path's, max |diff| {r['max_abs_err']}; steps (name, wall s, "
             f"cpu s, device peak MiB) {table}; process {r['process_s']:.2f}s")
     busy = cli["busy"]
-    k1_n, k1_us = kernel_in_trace(busy, "flood_min_kernel")
+    k1_n, k1_us = kernel_in_trace(busy, "flood_min")
     k2_n, k2_us = kernel_in_trace(busy, "fps_loop")
     if not (k1_n >= 1 and k2_n >= 1):
-        raise AssertionError("CLI trace: K1 (flood_min_kernel) and K2 "
+        raise AssertionError("CLI trace: K1 (flood_min*) and K2 "
                              f"(fps_loop) must appear: {k1_n}, {k2_n}")
     window = busy["window_us"]
     walls = [cli[r]["steps"][1]["wall_s"] for r in ("untraced", "traced")]
@@ -2055,7 +2043,7 @@ def main(argv=None):
             t2 = time.perf_counter()
         t3 = time.perf_counter()
         warm = trace_busy(tmp, "main path")
-    w_k1 = kernel_in_trace(warm, "flood_min_kernel")
+    w_k1 = kernel_in_trace(warm, "flood_min")
     w_k2 = kernel_in_trace(warm, "fps_loop")
     log(f"main path traced in this process (warm): device busy "
         f"{warm['busy_us'] / 1e3:.3f} ms of a {warm['window_us'] / 1e3:.3f} "

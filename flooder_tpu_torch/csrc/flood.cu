@@ -7,28 +7,38 @@
 // (block of BS simplices, chunk of kd-ordered witnesses) pairs, each chunk
 // taken as SUB-witness sub-chunks.
 //
-// Structure: one CTA per (simplex block, sample tile). The CTA takes the
-// block's simplices one after another; for each it keeps the running min
-// of its tile's samples in registers (SPT samples per thread), walks the
-// block's chunk list nearest-first (a per-block CSR built by the caller)
-// and writes its output once. Nothing is carried between CTAs, so there
-// are no atomics, no aliased accumulator and no launch segments (the TPU's
-// sequential grid needed all three). CTAs are launched longest work-list
+// Structure at 1-8 coordinates (flood_min_few<DIM>): the caller tiles
+// every pass in tiles of FEW_RT = 128 samples, and each warp owns one
+// (simplex, tile): its tile's running mins stay in registers (SPT samples a
+// lane), it walks the block's chunk list nearest-first (a per-block CSR
+// built by the caller) and writes its output once. FEW_WARPS independent
+// warps a CTA and no CTA barrier, so the BS simplices of a block run at
+// once and an SM holds as many warps as its registers allow. Nothing is
+// carried between warps but their counts (atomics on the zeroed stats), so
+// there is no aliased accumulator and no launch segment (the TPU's
+// sequential grid needed both). Warps take the blocks longest work-list
 // first (`cta_order`, from the caller), so the longest blocks do not land
-// in the last wave.
+// in the last wave. A tile is one of three things: random mode's samples,
+// a coarse grid's (up to 384 samples a simplex, one to three tiles), or
+// past 384 samples a simplex a 128-sample patch of the grid's sample rows
+// in curve order, so a tight piece of the simplex.
 //
-// Two skips, uniform over the CTA:
+// Two skips, uniform over the warp:
 //  1. ball test: the sub-chunk's box must meet the simplex's ball (exact:
 //     the plain version's arithmetic, so both decide alike);
 //  2. tile test: the squared gap between the sub-chunk's box and the
 //     tile's sample box must not exceed min(pm, ub2), where pm is the
 //     tile's current max running min and ub2 the static nearest-vertex
-//     bound (+inf unless the landmarks lie in the cloud). It is lossless
-//     up to about an ulp of d2: rounding is monotone, so the gap bounds
-//     every separately rounded pair distance in the box, but the per-pair
-//     FMA (flood_common.cuh) can round a pair an ulp below it. pm comes
-//     from FMA-rounded mins and may differ from the plain version's by an
-//     ulp, so a gap within an ulp of pm can be admitted on one side and
+//     bound (+inf unless the landmarks lie in the cloud). The finer the
+//     tile, the tighter its box, pm and ub2: a sub-chunk is admitted one
+//     128-sample patch at a time, which leaves out about half of the
+//     in-ball pairs that tiles of 512 samples admitted on a 10M-point
+//     cheese at 30 points per edge, with the same face maxima (PERF.md). It
+//     is lossless up to about an ulp of d2: rounding is monotone, so the gap
+//     bounds every separately rounded pair distance in the box, but the
+//     per-pair FMA (flood_common.cuh) can round a pair an ulp below it. pm
+//     comes from FMA-rounded mins and may differ from the plain version's by
+//     an ulp, so a gap within an ulp of pm can be admitted on one side and
 //     skipped on the other; on every input checked (chip_smoke.py,
 //     tests/test_torch_cuda.py) the admitted units are the plain version's.
 //
@@ -37,53 +47,34 @@
 // flood_common.cuh), with one shared-memory broadcast per witness for SPT
 // samples; bytes are far below (inputs are read once per admitted unit,
 // mostly from L2). What the design does about it:
-//  - Compaction: a staged sub-chunk keeps its in-ball witnesses at the
-//    front of each 128-witness segment (warp ballot + popc), and the inner
-//    loop runs over the in-ball count rounded up to the unroll, not over
-//    all 512. The padding slots hold out-of-ball witnesses (at 3e18), and a
-//    unit with no in-ball witness folds in the one value such a witness
-//    gives: min is exact, so the output is the min over all 512 bit for
-//    bit. The fetch, the compaction and the inner loop are K3's too
-//    (flood_common.cuh).
-//  - One barrier per staging instead of seven: witnesses are staged into a
-//    double-buffered tile; each thread fetches its own slots of the next
-//    candidate sub-chunk with cp.async while the CTA computes, so raw data
-//    needs no barrier; the tile test's block max is folded into the staging
-//    barrier (each warp publishes its max of the running mins with the
-//    staged tile). The tile test needs the max after the last computed
-//    unit, so the first candidate after a computed unit is staged before
-//    its test; a rejected one costs that staging and its barrier.
+//  - The walk tests 32 list positions at once, a lane each (ball and
+//    tile-box tests as in the plain version), so the tests are not a serial
+//    chain ahead of the pair loop.
+//  - Compaction: an admitted sub-chunk is staged a 128-witness segment at a
+//    time into the warp's own shared memory (4 witnesses a lane, cp.async),
+//    its in-ball witnesses at the front (ballot + popc), and the inner loop
+//    runs over the in-ball count rounded up to the unroll, not over all 128.
+//    The padding slots hold out-of-ball witnesses (at 3e18), and a unit with
+//    no in-ball witness folds in the one value such a witness gives: min is
+//    exact, so the output is the min over all SUB witnesses bit for bit. The
+//    compaction and the inner loop are K3's too (flood_common.cuh).
+//  - No barrier but __syncwarp: the next segment, or the next ball
+//    candidate's first, is fetched while a segment computes.
 //
 // Arithmetic: the difference form in fp32 (flood_common.cuh; no tensor
 // cores: the |x|^2 - 2x.y + |y|^2 form breaks the oracle tolerance,
 // pallas_flood.py:51-56); the ball, box and tile tests explicitly rounded
 // as in the plain version. DIM * (3e18)^2, at most 7.2e37 at DIM 8, stays
 // finite in fp32 (flood_common.cuh), and outputs >= 1e30 mean "no witness
-// in the ball". The caller gets per-CTA counts of admitted units and of
+// in the ball". The caller gets per-tile counts of admitted units and of
 // in-ball pairs, from which the bound is computed.
 //
 // Template instances for 1-8 coordinates. At 5-8 a staged witness is two
-// float4 (the pair loop reads it with two LDS.128), and at 8 the raw fetch
-// buffer moves to dynamic shared memory; the code for 1-4 is unchanged.
-//
-// Few samples a simplex (random mode, coarse grids): the caller's tiles
-// hold FEW_RT = 128 samples up to 384 samples a simplex, and those tiles
-// take flood_min_few<DIM> (flood_min_few_launch). Above, a CTA of rt / 4
-// threads would be one to three warps that walk a block's 8 simplices one
-// after another, with shared memory sized for 512 witnesses: few warps an
-// SM, each a serial chain of list tests, fetches and barriers. Here each
-// warp owns one (simplex, tile) and shares nothing: FEW_WARPS independent
-// warps a CTA, no CTA barrier, so the 8 simplices of a block run at once
-// and an SM holds as many warps as its registers allow. A warp tests 32
-// list positions at once (a lane each, ball and tile-box tests as in the
-// plain version), and stages an admitted sub-chunk a 128-witness segment at
-// a time into its own shared memory (4 witnesses a lane, cp.async,
-// compaction by ballot), fetching the next segment, or the next ball
-// candidate's first, while it computes one. Each (simplex, tile) keeps its
-// walk, tests, running max and pair arithmetic (flood_common.cuh), so the
-// output equals flood_min_kernel's bit for bit and the counts are the
-// plain version's; a warp adds its counts to its (block, tile) row with
-// atomics on stats, which the launch zeroes first.
+// float4 (the pair loop reads it with two LDS.128). Tiles of 256-512
+// samples at 1-8 coordinates are refused: no caller makes them, since a
+// tile of 512 admits a sub-chunk for all its samples at once, and on a
+// 10M-point cheese's grid pass it computed about twice the pairs of the
+// patches at about the same cost a pair (an H100; PERF.md).
 //
 // Few samples past 8 coordinates: flood_min_few_wide (9-16 coordinates) and
 // flood_min_few_slabs (17 and more, no width cap), the two forms of one body
@@ -116,22 +107,23 @@
 // by atomics on the zeroed stats.
 //
 // 9 and more coordinates: one runtime-width instance, flood_min_wide (the
-// forms in flood_common.cuh). The same grid, launch order, work-list walk
-// and tests, on a coordinate-major copy of the samples, with rt / 2 threads
-// a CTA. What bounds it is the same fp32 issue, 2 * dim + 1 instructions
-// an in-ball pair (a sub and an FMA a coordinate, one min). What the design
-// does about it: the pair loop is a register tile of 8 samples x 8
-// witnesses a thread, both read from shared memory with LDS.128 (4 loads
-// for 64 pairs a coordinate), so the loop issues little besides its FADD
-// and FFMA; a unit's witnesses are compacted to the in-ball ones (ballot,
-// popc, one prefix over the sub-chunk, no shared atomics) and computed 32
-// at a time; the walk tests 32 list positions at once, a lane each (its
-// ball and box tests are latency chains over the coordinates); up to 16
-// coordinates the tile's samples are staged once a
-// simplex and the next ball candidate's rows are fetched with cp.async
-// while a unit computes (three barriers a unit); past 16 both operands go
-// in 16-coordinate slabs. Its d2 differs from the plain version's by the
-// rounding of two summation orders (at most 2 * dim * 2^-24 * d2); the
+// forms in flood_common.cuh), for tiles of 256-512 samples (and of 128, where
+// a check holds the few-sample instances to it): one CTA of rt / 2 threads a
+// (block, tile), which takes the block's simplices in turn; the same launch
+// order, work-list walk and tests, on a coordinate-major copy of the samples.
+// What bounds it is the same fp32 issue, 2 * dim + 1 instructions an in-ball
+// pair (a sub and an FMA a coordinate, one min). What the design does about
+// it: the pair loop is a register tile of 8 samples x 8 witnesses a thread,
+// both read from shared memory with LDS.128 (4 loads for 64 pairs a
+// coordinate), so the loop issues little besides its FADD and FFMA; a unit's
+// witnesses are compacted to the in-ball ones (ballot, popc, one prefix over
+// the sub-chunk, no shared atomics) and computed 32 at a time; the walk tests
+// 32 list positions at once, a lane each (its ball and box tests are latency
+// chains over the coordinates); up to 16 coordinates the tile's samples are
+// staged once a simplex and the next ball candidate's rows are fetched with
+// cp.async while a unit computes (three barriers a unit); past 16 both
+// operands go in 16-coordinate slabs. Its d2 differs from the plain version's
+// by the rounding of two summation orders (at most 2 * dim * 2^-24 * d2); the
 // ball, box and tile tests are the plain version's arithmetic.
 
 #include <cuda_runtime.h>
@@ -147,170 +139,6 @@ using flood::SUB;
 
 constexpr int MAX_RT = 512;  // samples per tile, at most
 constexpr int SPT = 4;       // samples per thread
-constexpr int MAX_WARPS = MAX_RT / SPT / 32;
-
-template <int DIM>
-__global__ void __launch_bounds__(MAX_RT / SPT) flood_min_kernel(
-    const float *__restrict__ samples,    // (S, NR, RT, DIM) ball-local
-    const float *__restrict__ witnesses,  // (W, DIM) kd-ordered, 16B-aligned
-    const float *__restrict__ sub_lo,     // (W / SUB, DIM) sub-chunk boxes
-    const float *__restrict__ sub_hi,
-    const float *__restrict__ centers,  // (S, DIM)
-    const float *__restrict__ radii,    // (S,)
-    const float *__restrict__ tile_lo,  // (S, NR, DIM) ball-local
-    const float *__restrict__ tile_hi,
-    const float *__restrict__ ub2,        // (S, NR)
-    const int *__restrict__ blk_ptr,      // (n_blk + 1,) CSR offsets
-    const int *__restrict__ blk_chunks,   // chunk ids, nearest first
-    const int *__restrict__ cta_order,    // (n_blk,) block of each CTA row
-    float *__restrict__ out,              // (S, NR, RT) min d^2
-    long long *__restrict__ stats,        // (n_blk * NR, 2)
-    int nr, int rt, int bs, int spc) {
-  // raw: each lane's own slots of the next sub-chunk (cp.async target, read
-  // back only by the lane that fetched them), in dynamic shared memory where
-  // it would not fit beside wsh (raw_dynamic); wsh: the staged tile
-  constexpr bool RAW_DYN = flood::raw_dynamic<DIM>();
-  __shared__ __align__(16) float raw_static[RAW_DYN ? 4 : SUB * DIM];
-  extern __shared__ __align__(16) float raw_dyn[];
-  float *raw = RAW_DYN ? raw_dyn : raw_static;
-  __shared__ flood::Staged<DIM> wsh[2][SUB];
-  __shared__ int segcnt[2][NSEG];
-  __shared__ float wmax[2][MAX_WARPS];
-
-  const int b = cta_order[blockIdx.x / nr];
-  const int r = blockIdx.x - (blockIdx.x / nr) * nr;
-  const int tid = threadIdx.x, T = blockDim.x;
-  const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
-  const int c0 = blk_ptr[b], c1 = blk_ptr[b + 1];
-  long long units = 0, inball = 0;
-  int wb = 0;  // the staging buffer no thread reads
-
-  for (int si = 0; si < bs; ++si) {
-    const int s = b * bs + si;
-    const size_t tile = (size_t)s * nr + r;
-    float c[DIM], tlo[DIM], thi[DIM];
-#pragma unroll
-    for (int d = 0; d < DIM; ++d) {
-      c[d] = centers[(size_t)s * DIM + d];
-      tlo[d] = tile_lo[tile * DIM + d];
-      thi[d] = tile_hi[tile * DIM + d];
-    }
-    const float rad = radii[s];
-    const float r2 = __fmul_rn(rad, rad);
-    const float ub = ub2[tile];
-
-    float x[SPT][DIM], acc[SPT];
-#pragma unroll
-    for (int k = 0; k < SPT; ++k) {
-      const int j = tid + k * T;
-#pragma unroll
-      for (int d = 0; d < DIM; ++d)
-        x[k][d] = samples[(tile * rt + j) * DIM + d];
-      acc[k] = CUDART_INF_F;
-    }
-
-    // the list cursor and the next sub-chunk that passes the ball test
-    int p = c0, q = 0;
-    auto next_ball = [&]() -> int {
-      while (p < c1) {
-        const int sub = blk_chunks[p] * spc + q;
-        if (++q == spc) {
-          q = 0;
-          ++p;
-        }
-        if (flood::near2<DIM>(sub_lo, sub_hi, sub, c) <= r2)  // skip 1
-          return sub;
-      }
-      return -1;
-    };
-
-    float pm = CUDART_INF_F;  // block max of acc, valid unless `dirty`
-    float wm = CUDART_INF_F;  // this warp's max of acc
-    bool dirty = false;       // acc changed since pm was taken
-    bool fetched = false;     // cand's raw data is on its way
-    int cand = next_ball();
-    while (cand >= 0) {
-      if (!dirty) {
-        // pm is exact: test before staging
-        if (!(flood::gap2<DIM>(sub_lo, sub_hi, cand, c, tlo, thi) <=
-              fminf(pm, ub))) {
-          cand = next_ball();
-          fetched = false;
-          continue;
-        }
-        if (!fetched)
-          flood::fetch_raw<DIM>(raw, witnesses, cand, warp, nw, lane);
-      }
-
-      // stage cand into wsh[wb], compacted per segment
-      flood::stage_compacted<DIM>(raw, c, r2, wsh[wb], segcnt[wb], warp, nw,
-                                  lane);
-      if (dirty && lane == 0) wmax[wb][warp] = wm;
-      // fetch the next ball candidate while this one is tested and computed
-      const int nxt = next_ball();
-      if (nxt >= 0)
-        flood::fetch_raw<DIM>(raw, witnesses, nxt, warp, nw, lane);
-      __syncthreads();  // publishes wsh[wb], segcnt[wb] and wmax[wb]
-
-      if (dirty) {
-        pm = wmax[wb][0];
-        for (int w = 1; w < nw; ++w) pm = fmaxf(pm, wmax[wb][w]);
-        dirty = false;
-      }
-      if (flood::gap2<DIM>(sub_lo, sub_hi, cand, c, tlo, thi) <=
-          fminf(pm, ub)) {
-        // an admitted unit (skip 2 passed)
-        const int total =
-            flood::min_over_staged<DIM, SPT>(wsh[wb], segcnt[wb], x, acc);
-        units += 1;
-        inball += total;
-        wm = acc[0];
-#pragma unroll
-        for (int k = 1; k < SPT; ++k) wm = fmaxf(wm, acc[k]);
-        for (int off = 16; off > 0; off >>= 1)
-          wm = fmaxf(wm, __shfl_xor_sync(flood::FULL, wm, off));
-        dirty = true;
-        wb ^= 1;
-      }
-      cand = nxt;
-      fetched = true;
-    }
-#pragma unroll
-    for (int k = 0; k < SPT; ++k) out[tile * rt + tid + k * T] = acc[k];
-  }
-  if (tid == 0) {
-    const size_t row = (size_t)b * nr + r;
-    stats[2 * row] = units;
-    stats[2 * row + 1] = inball * rt;
-  }
-}
-
-template <int DIM>
-cudaError_t launch(const float *samples, const float *witnesses,
-                   const float *sub_lo, const float *sub_hi,
-                   const float *centers, const float *radii,
-                   const float *tile_lo, const float *tile_hi,
-                   const float *ub2, const int *blk_ptr,
-                   const int *blk_chunks, const int *cta_order, float *out,
-                   long long *stats, int n_blk, int nr, int rt, int bs,
-                   int spc, cudaStream_t stream, long long *launched) {
-  const long long ctas = (long long)n_blk * nr;
-  if (ctas == 0) return cudaSuccess;
-  const size_t smem =
-      flood::raw_dynamic<DIM>() ? (size_t)SUB * DIM * sizeof(float) : 0;
-  cudaError_t e = cudaSuccess;
-  if (smem)
-    e = cudaFuncSetAttribute(flood_min_kernel<DIM>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
-  if (e != cudaSuccess) return e;
-  flood_min_kernel<DIM><<<(unsigned)ctas, rt / SPT, smem, stream>>>(
-      samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, tile_hi,
-      ub2, blk_ptr, blk_chunks, cta_order, out, stats, nr, rt, bs, spc);
-  e = cudaGetLastError();
-  if (e == cudaSuccess) ++*launched;
-  return e;
-}
 
 // Few samples a simplex: tiles of FEW_RT samples, one warp a (simplex,
 // tile), FEW_WARPS independent warps a CTA (see the note at the top).
@@ -1055,11 +883,12 @@ long long flood_wide_smem_bytes(int dim) {
   return (long long)flood::wide_smem_bytes(dim, true);
 }
 
-// Launch K1 on `stream`. `rt` must be a multiple of 128 and at most 512;
-// `dim` at least 1; `samples` (S, NR, RT, dim) for 1-8 coordinates and
-// coordinate-major, (S, NR, dim, RT), for more (flood_min_wide: its shared
-// memory, flood_wide_smem_bytes, is at most 98,304 bytes at 16
-// coordinates and 35,840 at any width past 16: no width cap);
+// Launch K1's instance for tiles of up to 512 samples on `stream`: past 8
+// coordinates alone (flood_min_wide); 1-8 coordinates are refused, since
+// their tiles hold FEW_RT samples (flood_min_few_launch). `rt` must be a
+// multiple of 128 and at most 512; `samples` coordinate-major, (S, NR,
+// dim, RT) (its shared memory, flood_wide_smem_bytes, is at most 98,304
+// bytes at 16 coordinates and 35,840 at any width past 16: no width cap);
 // `cta_order` a permutation of the blocks (CTA row i runs block
 // cta_order[i]); `witnesses` 16-byte aligned. *launched is set to the
 // number of kernel launches enqueued without error (0 when there is no
@@ -1074,33 +903,13 @@ int flood_min_launch(const float *samples, const float *witnesses,
                      int bs, int subs_per_chunk, void *stream,
                      long long *launched) {
   *launched = 0;
-  if (rt <= 0 || rt > MAX_RT || rt % 128 != 0 ||
+  if (dim <= flood::MAX_DIM || rt <= 0 || rt > MAX_RT || rt % 128 != 0 ||
       reinterpret_cast<uintptr_t>(witnesses) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define FLOOD_MIN_LAUNCH(D)                                                 \
-  launch<D>(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,    \
-            tile_hi, ub2, blk_ptr, blk_chunks, cta_order, out, stats, n_blk, \
-            nr, rt, bs, subs_per_chunk, s, launched)
-  cudaError_t e;
-  switch (dim) {
-    case 1: e = FLOOD_MIN_LAUNCH(1); break;
-    case 2: e = FLOOD_MIN_LAUNCH(2); break;
-    case 3: e = FLOOD_MIN_LAUNCH(3); break;
-    case 4: e = FLOOD_MIN_LAUNCH(4); break;
-    case 5: e = FLOOD_MIN_LAUNCH(5); break;
-    case 6: e = FLOOD_MIN_LAUNCH(6); break;
-    case 7: e = FLOOD_MIN_LAUNCH(7); break;
-    case 8: e = FLOOD_MIN_LAUNCH(8); break;
-    default:
-      e = dim < 1 ? cudaErrorInvalidValue
-                  : launch_wide(samples, witnesses, sub_lo, sub_hi, centers,
-                                radii, tile_lo, tile_hi, ub2, blk_ptr,
-                                blk_chunks, cta_order, out, stats, n_blk, nr,
-                                rt, bs, subs_per_chunk, dim, s, launched);
-  }
-#undef FLOOD_MIN_LAUNCH
-  return static_cast<int>(e);
+  return static_cast<int>(launch_wide(
+      samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, tile_hi,
+      ub2, blk_ptr, blk_chunks, cta_order, out, stats, n_blk, nr, rt, bs,
+      subs_per_chunk, dim, static_cast<cudaStream_t>(stream), launched));
 }
 
 // Launch K1's few-sample instances on `stream`: as flood_min_launch, for

@@ -8,7 +8,7 @@
 // add is rounded on its own, as in the plain PyTorch versions, unless an
 // FMA is written out. The one FMA is in the per-pair distance, contracted
 // to d2 = fma(dz, dz, fma(dy, dy, dx * dx)): 7 issued instructions per
-// pair with the min (the inner loop of flood_min_kernel<3> in SASS),
+// pair with the min (the inner loop of flood_min_few<3> in SASS),
 // against 9 for the separately rounded form. It moves d2 by an ulp or so
 // from the plain version (3.7e-9 at most on the main path's operands,
 // against a 1e-6 bar); the ball, box and tile tests are not contracted,
@@ -28,10 +28,10 @@
 // (min_over_staged) runs over the in-ball count rounded up to UNROLL, so
 // padding slots hold out-of-ball witnesses, and a sub-chunk with none in
 // the ball folds in the one value such a witness gives: min is exact, so
-// the result is the min over all SUB witnesses bit for bit. K1's few-sample
-// instances stage one segment at a time (fetch_segment, stage_segment) with
-// the same compaction (compact_segment) and inner loop (min_over_segment),
-// so their output equals the other instances' bit for bit.
+// the result is the min over all SUB witnesses bit for bit. K3 stages so;
+// K1's template instances stage one segment at a time (fetch_segment,
+// stage_segment) with the same compaction (compact_segment) and inner loop
+// (min_over_segment), so K3's output equals theirs bit for bit.
 //
 // Runtime width (9 and more coordinates; the wide_* forms at the end). The
 // pair loop is a register tile shaped like a matrix product whose inner

@@ -50,13 +50,17 @@
 //    orders the blocks by work-list length, K1's order, and keeps each
 //    block's simplices together), so long lists do not land in the last
 //    wave. The counters are per simplex, so the order changes no output.
-//  - Tile groups: a CTA holds G = 2 groups of rt / 4 threads that share
-//    the staged sub-chunk; a unit's computed tiles go to the groups in
-//    turn. A group's warps own a tile's running mins for the unit, so the
-//    groups need no barrier among themselves. With one group the longest
-//    simplices run their tiles one after another (on an H100, 10.9 against
-//    8.4 ms at 100k x 300, about 1 % slower at 1M x 1k); four groups were
-//    no faster (PERF.md).
+//  - Tile groups: a CTA holds 256 threads in groups of rt / 4 that share
+//    the staged sub-chunk (G = 2 groups at rt 512; at 1-8 coordinates the
+//    caller's tiles hold 128 samples, and a CTA has up to 8 groups of a
+//    warp, as many as the simplex has tiles, at least 2: tile_groups); a
+//    unit's computed tiles go to the groups in turn. A group's warps own a
+//    tile's running mins for the unit, so the groups need no barrier among
+//    themselves. With one group the longest simplices run their tiles one
+//    after another (on an H100, 10.9 against 8.4 ms at 100k x 300 with tiles
+//    of 512, about 1 % slower at 1M x 1k); four groups of 512 were no faster
+//    (PERF.md). Tiles of 128 in two groups of a warp made the tool 1.3x
+//    slower at 100k x 300 than tiles of 512 (PERF.md).
 //
 // What bounds it: fp32 instruction issue, as K1: 7 per (sample, in-ball
 // witness) pair of the computed tiles, the same pairs K1 computes, in the
@@ -86,12 +90,21 @@ namespace {
 using flood::NSEG;
 using flood::SUB;
 constexpr int SPT = 4;  // samples per thread
-constexpr int G = 2;    // tile groups a CTA
+constexpr int G = 2;    // tile groups a CTA at rt 512
 constexpr int MAX_RT = 512;
+constexpr int MAX_THREADS = G * MAX_RT / SPT;
 constexpr int MAX_GROUP_WARPS = MAX_RT / SPT / 32;
 
+// Tile groups of a CTA for tiles of rt samples and nr tiles a simplex: G
+// at rt 512, and at smaller tiles as many more as keep the CTA's threads
+// (256) where the simplex has the tiles to fill them.
+int tile_groups(int nr, int rt) {
+  const int most = MAX_THREADS / (rt / SPT);
+  return most <= G ? most : (nr < G ? G : (nr < most ? nr : most));
+}
+
 template <int DIM>
-__global__ void __launch_bounds__(G * MAX_RT / SPT) flood_stats_kernel(
+__global__ void __launch_bounds__(MAX_THREADS) flood_stats_kernel(
     const float *__restrict__ samples,    // (S, NR, RT, DIM) ball-local
     const float *__restrict__ witnesses,  // (W, DIM) kd-ordered, 16B-aligned
     const float *__restrict__ sub_lo,     // (W / SUB, DIM) sub-chunk boxes
@@ -127,7 +140,8 @@ __global__ void __launch_bounds__(G * MAX_RT / SPT) flood_stats_kernel(
   const int b = s / bs;
   const int tid = threadIdx.x, T = blockDim.x;
   const int lane = tid & 31, warp = tid >> 5, nw = T >> 5;
-  const int TG = T / G;  // threads of a tile group (rt / SPT)
+  const int TG = rt / SPT;  // threads of a tile group
+  const int NG = T / TG;     // tile groups (tile_groups)
   const int g = tid / TG, gt = tid - g * TG;
   const int gw = gt >> 5, ngw = TG >> 5;  // warp in the group, its count
   const int c0 = blk_ptr[b], c1 = blk_ptr[b + 1];
@@ -245,7 +259,7 @@ __global__ void __launch_bounds__(G * MAX_RT / SPT) flood_stats_kernel(
           if (tid < ngw) wmax_at(cur ^ 1, r)[tid] = wmax_at(cur, r)[tid];
           continue;
         }
-        if (k++ % G != g) continue;
+        if (k++ % NG != g) continue;
         const size_t tile = row0 + r;
         float x[SPT][DIM], acc[SPT];
 #pragma unroll
@@ -306,7 +320,8 @@ cudaError_t launch(const float *samples, const float *witnesses,
       flood_stats_kernel<DIM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return e;
-  flood_stats_kernel<DIM><<<(unsigned)s_total, G * (rt / SPT), smem,
+  flood_stats_kernel<DIM><<<(unsigned)s_total,
+                            tile_groups(nr, rt) * (rt / SPT), smem,
                             stream>>>(
       samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, tile_hi,
       ub2, blk_ptr, blk_chunks, sim_order, out, stats, nr, rt, bs, spc);

@@ -139,8 +139,8 @@ def build_cuda(names: Iterable[str]) -> None:
 
 # Kernel names in the libraries; a name that contains another comes first
 # (``flood_min_few_wide`` before ``flood_min_few``).
-KERNEL_NAMES = ("flood_min_kernel", "flood_stats_kernel", "fps_loop",
-                "flood_min_wide", "flood_stats_wide", "flood_min_few_wide",
+KERNEL_NAMES = ("flood_stats_kernel", "fps_loop", "flood_min_wide",
+                "flood_stats_wide", "flood_min_few_wide",
                 "flood_min_few_slabs", "flood_min_few")
 
 
@@ -165,7 +165,7 @@ def kernel_instance(mangled: str) -> str:
 def ptxas_kernels(text: str):
     """(kernel, registers, spill-store bytes, static shared bytes) of each
     entry function in a build's ``-Xptxas=-v`` output, with its template
-    arguments, e.g. ``("flood_min_kernel<3>", 72, 24, 22592)`` or
+    arguments, e.g. ``("flood_stats_kernel<3>", 72, 24, 22592)`` or
     ``("fps_loop<double,3>", ...)``."""
     rows = []
     for block in re.split(r"Compiling entry function '", text)[1:]:

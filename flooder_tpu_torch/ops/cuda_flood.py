@@ -22,13 +22,22 @@ TPU's scalar memory, the aliased accumulator, power-of-two compile-key
 bucketing and transposed witness storage. ``active`` is a bool and
 ``dist`` a float, so no pair is ever dropped by a packing.
 
-Few samples a simplex (random mode, coarse grids): up to 384 samples a
-simplex the tiles hold ``FEW_RT`` = 128 samples (``_tile_geometry``; the
-padded total is the same as with one larger tile), and those tiles take
-K1's few-sample instances at every width, one warp a (simplex, tile):
+Tiles of 128 samples (``FEW_RT``, ``_tile_geometry``): at 1-8 coordinates
+every pass, and past 8 up to 384 samples a simplex (random mode, coarse
+grids). They take K1's few-sample instances, one warp a (simplex, tile):
 ``flood_min_few<DIM>`` at 1-8 coordinates, ``flood_min_few_wide`` at 9-16
 and ``flood_min_few_slabs`` past 16 (``k1_instance`` says which instance a
-launch takes).
+launch takes). Past 384 samples a simplex at 1-8 coordinates (grid mode)
+the tiles are 128-sample patches of the curve-ordered sample rows, so each
+patch is a tight piece of its simplex with its own box, its own static
+bound ``ub2`` and its own largest running min: K1's tile test (skip 2)
+admits a sub-chunk for a patch only where its box comes within
+``min(pm, ub2)`` of the patch's, the same lossless test as on a tile of
+512 samples, one patch at a time. It leaves out the pairs that could not
+lower a minimum of that patch, about half of a 512-sample tile's on a
+cheese cloud of 10M points, with the same minima. At 1-8 coordinates no
+other tile is made, and ``flood_min`` refuses one. Past 8 coordinates the
+tiles of more than 384 samples hold ``RT`` = 512 (``flood_min_wide``).
 
 The kernel takes float32 clouds of any width, as the Pallas engine does:
 template instances for 1-8 coordinates and runtime-width instances past 8,
@@ -242,12 +251,16 @@ def witness_total(n: int) -> int:
 # ---------------------------------------------------------------------------
 
 
-def _tile_geometry(r_count: int):
+def _tile_geometry(r_count: int, dim: int):
     """Sample-tile geometry: (rt samples per tile, nr tiles, padded total).
-    Up to 384 samples the tiles hold FEW_RT (K1's few-sample instances, a
-    warp a tile), past that RT, with the same padded total either way (the
-    count rounded up to 128, then to RT past RT)."""
-    rt = RT if r_count > RT - FEW_RT else FEW_RT
+    At 1-8 coordinates every tile holds FEW_RT samples (K1's few-sample
+    instances, a warp a tile): past 384 samples a simplex its tiles are
+    128-sample patches, each admitting work for itself. Past 8 coordinates
+    the tiles hold FEW_RT up to 384 samples and RT above, with the same
+    padded total either way (the count rounded up to 128, then to RT past
+    RT)."""
+    few = dim <= KERNEL_MAX_DIM or r_count <= RT - FEW_RT
+    rt = FEW_RT if few else RT
     nr = -(-r_count // rt)
     return rt, nr, nr * rt
 
@@ -483,13 +496,16 @@ def kernel_samples(samples: torch.Tensor) -> torch.Tensor:
 def k1_instance(rt: int, dim: int) -> str:
     """The instance of K1 that ``flood_min`` launches on tiles of ``rt``
     samples at ``dim`` coordinates: tiles of FEW_RT take the few-sample
-    instances (a warp a tile), other tiles the instances for tiles of up to
-    512 (a CTA a block and tile); past KERNEL_MAX_DIM the runtime-width ones
-    (the few-sample one in two forms: one 16-coordinate slab, and slabs)."""
-    few = rt == FEW_RT
-    if not few:
-        return ("flood_min_wide" if dim > KERNEL_MAX_DIM
-                else f"flood_min_kernel<{dim}>")
+    instances (a warp a tile), at 1-8 coordinates the template one and past
+    KERNEL_MAX_DIM the runtime-width one in two forms (one 16-coordinate
+    slab, and slabs); larger tiles take ``flood_min_wide`` (a CTA a block
+    and tile) past KERNEL_MAX_DIM and raise ValueError at 1-8 coordinates,
+    where ``_tile_geometry`` makes none."""
+    if rt != FEW_RT:
+        if dim <= KERNEL_MAX_DIM:
+            raise ValueError(f"K1 takes tiles of {FEW_RT} samples at 1-"
+                             f"{KERNEL_MAX_DIM} coordinates, not {rt}")
+        return "flood_min_wide"
     if dim <= KERNEL_MAX_DIM:
         return f"flood_min_few<{dim}>"
     return ("flood_min_few_wide" if dim <= FEW_ONE_SLAB_DIM
@@ -536,23 +552,32 @@ def flood_min(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
     CPU tensors go to ``flood_pairs_reference``; CUDA tensors launch
     ``csrc/flood.cu`` (blocks longest work-list first) or raise: the
     instance ``k1_instance(rt, dim)`` names, so tiles of FEW_RT samples
-    take its few-sample instances (a warp a tile) at every width. Returns
-    (out (S, nr, rt), stats).
+    take its few-sample instances (a warp a tile) at every width, and
+    larger tiles at 1-8 coordinates raise ValueError. While tracing it
+    counts the sample slots it runs (``k1_samples``) and those in tiles of
+    FEW_RT, each admitting work for itself (``k1_patch_samples``; every
+    slot at 1-8 coordinates). Returns (out (S, nr, rt), stats).
     """
     operands = (samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
                 tile_hi, ub2, blk_ptr, blk_chunks)
-    rt, dim = samples.shape[2:]
-    return _flood_min(operands, k1_instance(rt, dim).startswith(
-        "flood_min_few"))
+    s_total, nr, rt, dim = samples.shape
+    n = s_total * nr * rt
+    stagetimer.count("k1_samples", n)
+    if rt == FEW_RT:
+        stagetimer.count("k1_patch_samples", n)
+    few = samples.device.type != "cpu" and k1_instance(
+        rt, dim).startswith("flood_min_few")
+    return _flood_min(operands, few)
 
 
 def flood_min_tiled(samples, witnesses, sub_lo, sub_hi, centers, radii,
                     tile_lo, tile_hi, ub2, blk_ptr, blk_chunks):
-    """K1 through its instances for tiles of up to 512 samples (a CTA a
-    block and tile) at any tile size, tiles of FEW_RT samples too: a second
+    """K1 past KERNEL_MAX_DIM coordinates through ``flood_min_wide`` (a CTA
+    a block and tile) at any tile size, tiles of FEW_RT samples too: a second
     route for those tiles, which no entry point takes; the card checks hold
-    the few-sample instances to it (the same output bit for bit, the same
-    counts). CPU tensors go to ``flood_pairs_reference``."""
+    the few-sample instances past 8 coordinates to it (the same output bit
+    for bit, the same counts). At 1-8 coordinates the launch refuses CUDA
+    tensors. CPU tensors go to ``flood_pairs_reference``."""
     return _flood_min((samples, witnesses, sub_lo, sub_hi, centers, radii,
                        tile_lo, tile_hi, ub2, blk_ptr, blk_chunks), False)
 
@@ -707,7 +732,7 @@ class CudaFloodEngine:
         ``flood_min``, sperm, number of real simplices)."""
         num, k, dim = verts.shape
         s_total = _round_up(max(num, 1), BS)
-        rt, nr, r2_total = _tile_geometry(weights.shape[0])
+        rt, nr, r2_total = _tile_geometry(weights.shape[0], dim)
         verts, centers, radii = _pad_simplices(verts, centers, radii,
                                                s_total)
         ws, sperm = _prepare_sample_weights(weights, r2_total)

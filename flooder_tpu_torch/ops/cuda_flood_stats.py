@@ -26,12 +26,13 @@ is staged once, compacted to its in-ball witnesses, with one barrier per
 computed unit (the tile maxima of tests 2 and 3 are published with the
 staging, the next candidate is fetched with cp.async meanwhile); the CTAs
 run the simplices of the longest work-lists first (``_simplex_order``),
-and two tile groups of a CTA share each staged sub-chunk. Like K1
+and the tile groups of a CTA share each staged sub-chunk (two at tiles of
+512 samples, up to eight of a warp at the engine's tiles of 128). Like K1
 it is bound by fp32 instruction issue: 7 instructions per in-ball (sample,
 witness) pair of the computed tiles, K1's own pairs in K1's inner loop. On
-an NVIDIA H100 80GB HBM3 at 700 W it takes 47.1 ms on the 1M x 1k main
-path's dimension-3 operands, against a 34.7 ms issue floor and a 22.3 ms
-operations bound, and 0.97x K1's time (PERF.md).
+an NVIDIA H100 80GB HBM3 at 700 W it takes 35.7 ms on the 1M x 1k main
+path's dimension-3 operands, against a 22.2 ms issue floor and a 14.3 ms
+operations bound, and 1.21x K1's time (PERF.md).
 
 Differences from the TPU tool, on purpose: the pair list is walked once
 with no launch segments, so it is not padded to whole segments by

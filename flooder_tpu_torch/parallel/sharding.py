@@ -250,7 +250,7 @@ class MeshCudaFloodEngine(cf.CudaFloodEngine):
         """
         num = verts.shape[0]
         s_total = cf._round_up(max(num, 1), cf.BS)
-        rt, nr, r2_total = cf._tile_geometry(weights.shape[0])
+        rt, nr, r2_total = cf._tile_geometry(weights.shape[0], self.dim)
         verts, centers, radii = cf._pad_simplices(verts, centers, radii,
                                                   s_total)
         ws, sperm = cf._prepare_sample_weights(weights, r2_total)

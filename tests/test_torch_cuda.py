@@ -188,9 +188,9 @@ def test_flood_kernel_matches_plain_where_balls_cut_subchunks(cuda_device):
 # K3's cases beyond the Delaunay scenes, as k3_case_operands arguments; CPU
 # tests (test_torch_kernel_stats.py) check through the plain version that each
 # reaches the fold of a unit with no in-ball witness and a tile that test 3
-# rejects inside an admitted unit. At 512 samples a tile the dim cases have
-# 3 or 4 tiles a simplex, so both tile groups of a CTA compute tiles and read
-# each other's tile maxima; "nr1" has one tile of 128 samples (at most 128
+# rejects inside an admitted unit. In tiles of 128 samples the dim cases have
+# 9 to 16 tiles a simplex ("nr3" 11), so both tile groups of a CTA compute
+# tiles and read each other's tile maxima; "nr1" has one tile (at most 128
 # samples a simplex), "empty-block" three.
 K3_CASES = {
     "dim1": dict(dim=1, r_count=1100),
@@ -203,14 +203,16 @@ K3_CASES = {
 
 
 def k3_case_operands(device, dim, r_count, empty_block=False, seed=7,
-                     radius_max=1.3):
+                     radius_max=1.3, rt=None, tight=True):
     """Seeded K3 operands from ``CudaFloodEngine.prepare``: 16,384 witnesses
     in [0, 5]^dim, 4 blocks of random simplices with the nearest-vertex
     bound on and radii in [0.1, radius_max) (past 8 coordinates the
     distance of the 2nd to 299th nearest witness). Every fourth ball has radius
     1e-5, so it meets the sub-chunk boxes around its centre but holds no
     witness; ``empty_block`` gives the last block radius 0, so its
-    work-list is empty."""
+    work-list is empty. ``rt`` sets the samples a tile (default: the
+    engine's tiling; otherwise ``tiled_operands``); ``tight`` False turns
+    the bound off."""
     rng = np.random.default_rng(seed + dim)
     X = (rng.random((16384, dim)) * 5).astype(np.float32)
     eng = cuda_flood.CudaFloodEngine(torch.from_numpy(X).to(device))
@@ -231,7 +233,33 @@ def k3_case_operands(device, dim, r_count, empty_block=False, seed=7,
     w = rng.random((r_count, k)).astype(np.float32)
     w /= w.sum(axis=1, keepdims=True)
     t = lambda a: torch.from_numpy(a).to(device)  # noqa: E731
-    return eng.prepare(t(verts), w, t(centers), t(radii), True)[0]
+    args = (t(verts), w, t(centers), t(radii), tight)
+    if rt is None:
+        return eng.prepare(*args)[0]
+    return tiled_operands(eng, *args, rt)[0]
+
+
+def tiled_operands(engine, verts, weights, centers, radii, tight, rt):
+    """What ``engine.prepare`` returns for one pass, in tiles of ``rt``
+    samples instead of ``_tile_geometry``'s: at 1-8 coordinates K1 takes
+    tiles of 128 alone, so tiles of 512 there are for the plain versions
+    and K3."""
+    nr = -(-weights.shape[0] // rt)
+    num = verts.shape[0]
+    s_total = cuda_flood._round_up(max(num, 1), cuda_flood.BS)
+    verts, centers, radii = cuda_flood._pad_simplices(verts, centers, radii,
+                                                      s_total)
+    ws, sperm = cuda_flood._prepare_sample_weights(weights, nr * rt)
+    samples, tile_lo, tile_hi, ub2, active, dist = cuda_flood._prep(
+        verts - centers[:, None, :], torch.tensor(ws, device=verts.device),
+        centers, radii, engine.chunk_lo, engine.chunk_hi, bs=cuda_flood.BS,
+        nr=nr, rt=rt, tight=tight,
+    )
+    ops = (samples.contiguous(), engine.witnesses, engine.sub_lo,
+           engine.sub_hi, centers.contiguous(), radii.contiguous(),
+           tile_lo.contiguous(), tile_hi.contiguous(), ub2.contiguous(),
+           *cuda_flood._worklist(active, dist))
+    return ops, sperm, num
 
 
 def k3_paths_reached(out, stats):
@@ -249,7 +277,9 @@ def k3_paths_reached(out, stats):
 def assert_k3_matches_plain(ops):
     """K3, launched once through its wrapper, against its plain version
     (d^2 within 1e-6, inf alike, every counter equal) and against K1 (equal
-    output, computed tiles == K1's units)."""
+    output, computed tiles == K1's units); on tiles that no K1 instance
+    takes (more than 128 samples at 1-8 coordinates), against K1's plain
+    version (d^2 within 1e-6, computed tiles == its units)."""
     before = cuda_flood_stats.LAUNCHES
     out_k, stats_k = cuda_flood_stats.flood_min_stats(*ops)
     torch.cuda.synchronize()
@@ -261,8 +291,15 @@ def assert_k3_matches_plain(ops):
     assert diff.numel() == 0 or diff.max().item() <= 1e-6
     assert torch.equal(stats_k, stats_p)
     assert stats_k[:, cuda_flood_stats.COL_TILES].sum().item() > 0
-    out_1, stats_1 = cuda_flood.flood_min(*ops)
-    assert torch.equal(out_k, out_1)
+    rt, dim = ops[0].shape[2:]
+    if rt != cuda_flood.FEW_RT and dim <= cuda_flood.KERNEL_MAX_DIM:
+        out_1, stats_1 = cuda_flood.flood_pairs_reference(*ops)
+        assert torch.equal(out_1 >= cuda_flood._MASKED_D2, masked_p)
+        assert (out_k[~masked_p] - out_1[~masked_p]).abs().max().item() <= (
+            1e-6)
+    else:
+        out_1, stats_1 = cuda_flood.flood_min(*ops)
+        assert torch.equal(out_k, out_1)
     assert stats_k[:, cuda_flood_stats.COL_TILES].sum().item() == (
         cuda_flood.kernel_operations(stats_1)[0]
     )
@@ -282,16 +319,20 @@ def test_flood_stats_kernel_cases_match_plain(cuda_device, case):
 @pytest.mark.parametrize("dim", [5, 6, 7, 8])
 def test_flood_kernels_match_plain_at_5_to_8_coordinates(cuda_device, dim):
     """K1 and K3 at 5-8 coordinates (a staged witness of two float4; at 8
-    the raw buffer in dynamic shared memory) against their plain versions.
+    K3's raw buffer in dynamic shared memory) against their plain versions.
     Balls up to radius 3 in [0, 5]^dim hold a few hundred witnesses and cut
-    sub-chunks; 1100 samples give 3 tiles a simplex."""
+    sub-chunks; 1100 samples give 9 patches of 128 a simplex (K1's
+    few-sample instance, K3 in 8 tile groups of a warp). On 3 tiles of 512,
+    which K1 refuses at 1-8 coordinates, K3 (2 tile groups of 4 warps)
+    against the plain versions."""
     ops = k3_case_operands(cuda_device, dim=dim, r_count=1100,
                            radius_max=3.0)
-    assert ops[0].shape[1] == 3
-    before = cuda_flood.LAUNCHES
+    assert ops[0].shape[1] == 9
+    before = (cuda_flood.LAUNCHES, cuda_flood.FEW_LAUNCHES)
     out_k, stats_k = cuda_flood.flood_min(*ops)
     torch.cuda.synchronize()
-    assert cuda_flood.LAUNCHES == before + 1
+    assert (cuda_flood.LAUNCHES, cuda_flood.FEW_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
     out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
     masked = out_p >= cuda_flood._MASKED_D2
     assert torch.equal(out_k >= cuda_flood._MASKED_D2, masked)
@@ -301,6 +342,15 @@ def test_flood_kernels_match_plain_at_5_to_8_coordinates(cuda_device, dim):
     units, inball = cuda_flood.kernel_operations(stats_k)
     assert 0 < inball < units * cuda_flood.SUB * ops[0].shape[2]
     assert_k3_matches_plain(ops)
+
+    tiled = k3_case_operands(cuda_device, dim=dim, r_count=1100,
+                             radius_max=3.0, rt=cuda_flood.RT)
+    assert tiled[0].shape[1] == 3
+    before = cuda_flood.LAUNCHES
+    with pytest.raises(ValueError, match="tiles of 128"):
+        cuda_flood.flood_min(*tiled)
+    assert cuda_flood.LAUNCHES == before
+    assert_k3_matches_plain(tiled)
 
 
 @pytest.mark.parametrize("r_count", [1, 64, 126, 256])
@@ -326,6 +376,71 @@ def test_flood_kernel_few_samples_match_plain(cuda_device, dim, r_count):
     assert (out_k[~masked] - out_p[~masked]).abs().max().item() <= 1e-6
     assert torch.equal(stats_k, stats_p)
     assert cuda_flood.kernel_operations(stats_k)[0] > 0
+
+
+def witness_simplex_inputs(device, dim, r_count, seed=7):
+    """A pass's inputs on simplices whose vertices are witnesses, as the
+    main path's landmarks are: (engine, verts, weights, centers, radii).
+    16,384 witnesses in [0, 5]^dim, 4 blocks of simplices, each a witness
+    and dim of its 40 nearest, with their bounding balls, and ``r_count``
+    random barycentric weights. The nearest-vertex bound holds there."""
+    from flooder_tpu_torch.ops.flood import simplex_bounding_balls
+
+    rng = np.random.default_rng(seed + dim)
+    X = (rng.random((16384, dim)) * 5).astype(np.float32)
+    S, k = cuda_flood.BS * 4, dim + 1
+    first = rng.choice(len(X), S, replace=False)
+    near = np.argsort(np.linalg.norm(X[None] - X[first][:, None], axis=-1),
+                      1)[:, 1:41]
+    idx = np.stack([np.concatenate([[f], rng.choice(n, k - 1, replace=False)])
+                    for f, n in zip(first, near)])
+    verts = torch.from_numpy(X[idx]).to(device)
+    centers, radii = simplex_bounding_balls(verts)
+    w = rng.random((r_count, k)).astype(np.float32)
+    w /= w.sum(axis=1, keepdims=True)
+    engine = cuda_flood.CudaFloodEngine(torch.from_numpy(X).to(device))
+    return engine, verts, w, centers, radii
+
+
+@pytest.mark.parametrize("r_count", [465, 4960])
+@pytest.mark.parametrize("dim", [2, 3])
+def test_flood_kernel_patches_match_plain(cuda_device, dim, r_count):
+    """Past 384 samples a simplex (the figure-eight's 465 and the cheese's
+    4,960 at 30 points per edge) K1 runs 128-sample patches through its
+    few-sample instance, one launch, with the nearest-vertex bound on (the
+    vertices are witnesses): against the plain version on the same
+    patches, d^2 within 1e-6, inf alike, every count equal; and the
+    largest d^2 of each simplex within 1e-6 of what the plain version gives
+    on tiles of 512, with no more in-ball pairs."""
+    inputs = witness_simplex_inputs(cuda_device, dim, r_count)
+    ops = inputs[0].prepare(*inputs[1:], True)[0]
+    assert ops[0].shape[1:3] == (-(-r_count // cuda_flood.FEW_RT),
+                                 cuda_flood.FEW_RT)
+    assert bool(torch.isfinite(ops[8]).all())  # the bound is on
+    before = (cuda_flood.LAUNCHES, cuda_flood.FEW_LAUNCHES)
+    out_k, stats_k = cuda_flood.flood_min(*ops)
+    torch.cuda.synchronize()
+    assert (cuda_flood.LAUNCHES, cuda_flood.FEW_LAUNCHES) == (
+        before[0] + 1, before[1] + 1)
+    out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
+    masked = out_p >= cuda_flood._MASKED_D2
+    assert torch.equal(out_k >= cuda_flood._MASKED_D2, masked)
+    assert not masked.all()
+    assert (out_k[~masked] - out_p[~masked]).abs().max().item() <= 1e-6
+    assert torch.equal(stats_k, stats_p)
+
+    tiled = tiled_operands(*inputs, True, cuda_flood.RT)[0]
+    assert tiled[0].shape[2] == cuda_flood.RT
+    out_t, stats_t = cuda_flood.flood_pairs_reference(*tiled)
+    # the padded slots repeat the last real row, so each max is over the
+    # real samples in both
+    top_k = out_k.reshape(out_k.shape[0], -1).amax(-1)
+    top_t = out_t.reshape(out_t.shape[0], -1).amax(-1)
+    fin = top_t < cuda_flood._MASKED_D2
+    assert torch.equal(top_k < cuda_flood._MASKED_D2, fin) and fin.any()
+    assert (top_k[fin] - top_t[fin]).abs().max().item() <= 1e-6
+    pairs = cuda_flood.kernel_operations(stats_k)[1]
+    assert 0 < pairs <= cuda_flood.kernel_operations(stats_t)[1]
 
 
 @pytest.mark.parametrize("r_count", [1, 64, 126, 256, 384])

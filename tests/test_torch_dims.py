@@ -190,7 +190,7 @@ def test_plain_k3_matches_pallas_k3_past_8_coordinates():
 
     X, verts, w, centers, radii = _wide_block(9)
     eng = cf.CudaFloodEngine(torch.from_numpy(X))
-    rt, nr, r2_total = cf._tile_geometry(len(w))
+    rt, nr, r2_total = cf._tile_geometry(len(w), 9)
     ws, _ = cf._prepare_sample_weights(w, r2_total)
     vl = (verts - centers[:, None, :]).astype(np.float32)
     tpu_ops, ps, pc, out_j, st_j = _jax_k3(eng, ws, vl, centers, radii, nr,

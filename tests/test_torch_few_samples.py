@@ -9,7 +9,10 @@ against flooder_tpu (every dimension pass 0..3) and, on a 10-D cloud, at
 K1's plain version at 1, 64, 126 and 256 samples a simplex at 3
 coordinates, and at 1-384 at 10 (one to three tiles of 128), against the
 port's dense engine on seeded simplices. Parity bar: the same simplices,
-values within 1e-5, inf exactly where the reference has inf."""
+values within 1e-5, inf exactly where the reference has inf. Grid passes
+past 384 samples a simplex at 1-8 coordinates take the same tiles as
+128-sample patches: K1's plain version gives the face maxima of tiles of
+512 there, bit for bit, with no more in-ball pairs."""
 
 import numpy as np
 import pytest
@@ -19,6 +22,7 @@ import flooder_tpu as fj
 import flooder_tpu_torch as ft
 from flooder_tpu_torch.ops import cuda_flood as cf
 from flooder_tpu_torch.ops.flood import DenseFloodEngine, simplex_bounding_balls
+from test_torch_cuda import tiled_operands
 
 
 @pytest.fixture(scope="module", autouse=True)
@@ -46,17 +50,27 @@ def _assert_same(ref, got, tol=1e-5):
 def test_tiles_of_128_samples_take_the_few_sample_launch(dim):
     """Tiles of FEW_RT samples take the few-sample instances at every width
     (past 8 coordinates the runtime-width ones: one slab up to 16, slabs
-    past it); tiles of 256-512 samples take the instances that walk a
-    block's simplices in a CTA."""
+    past it); tiles of 256-512 samples take the instance that walks a
+    block's simplices in a CTA past 8 coordinates, and are refused at 1-8.
+    A pass takes tiles of FEW_RT at 1-8 coordinates whatever its samples a
+    simplex (past 384, 128-sample patches), and past 8 up to 384 samples,
+    RT above."""
     few = cf.k1_instance(cf.FEW_RT, dim)
     assert few == {3: "flood_min_few<3>", 8: "flood_min_few<8>",
                    17: "flood_min_few_slabs",
                    64: "flood_min_few_slabs"}.get(dim, "flood_min_few_wide")
     for rt in (256, 384, cf.RT):
-        other = cf.k1_instance(rt, dim)
-        assert not other.startswith("flood_min_few")
-        assert other == ("flood_min_wide" if dim > cf.KERNEL_MAX_DIM
-                         else f"flood_min_kernel<{dim}>")
+        if dim > cf.KERNEL_MAX_DIM:
+            assert cf.k1_instance(rt, dim) == "flood_min_wide"
+        else:
+            with pytest.raises(ValueError, match="tiles of 128"):
+                cf.k1_instance(rt, dim)
+    for r_count in (1, 384, 385, 465, 4960):
+        rt, nr, total = cf._tile_geometry(r_count, dim)
+        patches = dim <= cf.KERNEL_MAX_DIM or r_count <= cf.RT - cf.FEW_RT
+        assert rt == (cf.FEW_RT if patches else cf.RT)
+        assert (nr, total) == (-(-r_count // rt), -(-r_count // rt) * rt)
+        assert cf.k1_instance(rt, dim).startswith("flood_min_few") == patches
 
 
 @pytest.mark.parametrize("num_rand", [1, 64])
@@ -69,7 +83,7 @@ def test_random_mode_matches_flooder_tpu(num_rand):
     np.random.seed(4)
     ref = fj.flood_complex(X, 60, **kw)
     assert {len(s) for s in ref} == {1, 2, 3, 4}
-    assert cf._tile_geometry(num_rand) == (cf.FEW_RT, 1, cf.FEW_RT)
+    assert cf._tile_geometry(num_rand, 3) == (cf.FEW_RT, 1, cf.FEW_RT)
     np.random.seed(4)
     _assert_same(ref, ft.flood_complex(X, 60, device="cpu", **kw))
 
@@ -86,7 +100,7 @@ def test_10d_random_mode_matches_flooder_tpu(num_rand):
     np.random.seed(3)
     ref = fj.flood_complex(pts, 12, **kw)
     assert any(len(s) == 4 and np.isfinite(v) for s, v in ref.items())
-    rt = cf._tile_geometry(num_rand)[0]
+    rt = cf._tile_geometry(num_rand, 10)[0]
     assert cf.k1_instance(rt, 10) == "flood_min_few_wide"
     np.random.seed(3)
     _assert_same(ref, ft.flood_complex(pts, 12, device="cpu", **kw))
@@ -114,7 +128,7 @@ def test_plain_k1_matches_dense_engine_at_few_samples(dim, r_count):
     radii[::5] = 1e-4  # balls that hold no witness
     w = rng.random((r_count, 4))
     w /= w.sum(axis=1, keepdims=True)
-    rt, nr, _ = cf._tile_geometry(r_count)
+    rt, nr, _ = cf._tile_geometry(r_count, dim)
     assert (rt, nr) == (cf.FEW_RT, -(-r_count // cf.FEW_RT))
 
     engine = cf.CudaFloodEngine(X)
@@ -127,3 +141,64 @@ def test_plain_k1_matches_dense_engine_at_few_samples(dim, r_count):
         assert 0 < inball < units * cf.SUB * rt
     cells = lambda t: {ij: v for ij, v in np.ndenumerate(t.numpy())}  # noqa: E731
     _assert_same(cells(want), cells(got))
+
+
+def _clustered_cloud_with_a_void(dim, n=3000, seed=5):
+    """Half of the points uniform in the unit cube, half in four tight
+    Gaussian clusters, and none within 0.3 of the cube's centre."""
+    rng = np.random.default_rng(seed)
+    uniform = rng.random((n // 2, dim))
+    means = rng.random((4, dim))
+    clusters = (means[rng.integers(0, 4, n - n // 2)]
+                + rng.normal(0.0, 0.03, (n - n // 2, dim)))
+    X = np.concatenate([uniform, clusters])
+    X = X[np.linalg.norm(X - 0.5, axis=1) > 0.3]
+    return torch.from_numpy(X.astype(np.float32))
+
+
+def _face_maxima(engine, inputs, face_idxs, rt=None):
+    """K1's plain version on one grid pass tiled by ``_tile_geometry`` (or
+    by tiles of ``rt``): each codimension's face maxima of d^2 in the
+    original sample order, the in-ball pairs and the tiles' shape."""
+    if rt is None:
+        ops, sperm, num = engine.prepare(*inputs, True)
+    else:
+        ops, sperm, num = tiled_operands(engine, *inputs, True, rt)
+    out, stats = cf.flood_min(*ops)
+    acc2 = out.reshape(out.shape[0], -1)
+    inv = np.argsort(sperm)
+    faces = [acc2[:, torch.as_tensor(inv[t])].amax(-1)[:num]
+             for t in face_idxs]
+    return faces, cf.kernel_operations(stats)[1], ops[0].shape[1:3]
+
+
+@pytest.mark.parametrize("dim,ppe", [(2, 30), (3, 20), (3, 30), (5, 10)])
+def test_patches_give_the_face_maxima_of_512_sample_tiles(dim, ppe):
+    """A grid pass past 384 samples a simplex, on FPS landmarks' Delaunay
+    cells over a clustered cloud with a void: K1's plain version on
+    128-sample patches gives every face maximum of d^2 that it gives on
+    tiles of 512, bit for bit, with no more in-ball pairs."""
+    from flooder_tpu_torch.core import _grid_host
+    from flooder_tpu_torch.topology.delaunay import delaunay_cells
+
+    X = _clustered_cloud_with_a_void(dim)
+    L = ft.generate_landmarks(X, 24 if dim < 5 else 12, start_idx=0,
+                              device="cpu")
+    engine = cf.CudaFloodEngine(X)
+    cells = torch.as_tensor(delaunay_cells(L.double().numpy())).long()
+    verts = L[cells]
+    centers, radii = simplex_bounding_balls(verts)
+    order = torch.as_tensor(engine.order(centers))[:2 * cf.BS]
+    weights, _, face_idxs = _grid_host(ppe, dim)
+    assert len(weights) > cf.RT - cf.FEW_RT
+    inputs = (verts[order], weights, centers[order], radii[order])
+
+    patches, pairs, shape = _face_maxima(engine, inputs, face_idxs)
+    assert tuple(shape) == (-(-len(weights) // cf.FEW_RT), cf.FEW_RT)
+    tiles, pairs_512, shape_512 = _face_maxima(engine, inputs, face_idxs,
+                                               rt=cf.RT)
+    assert shape_512[1] == cf.RT
+    for got, want in zip(patches, tiles):
+        assert torch.isfinite(want).any()
+        assert torch.equal(got, want)
+    assert 0 < pairs <= pairs_512

@@ -122,7 +122,7 @@ def _prep_inputs(seed=7, s_blocks=8, r_count=40, k=4):
     ) * 0.3
     w = rng.random((r_count, k)).astype(np.float32)
     w /= w.sum(axis=1, keepdims=True)
-    rt, nr, r2_total = cf._tile_geometry(len(w))
+    rt, nr, r2_total = cf._tile_geometry(len(w), 3)
     ws, _ = cf._prepare_sample_weights(w, r2_total)
     vl = (verts - centers[:, None, :]).astype(np.float32)
     return eng, ws, vl, centers, radii, nr, rt
@@ -321,8 +321,8 @@ def test_ptxas_names_every_kernel_instance():
     from flooder_tpu_torch.native.build import kernel_instance, ptxas_kernels
 
     names = {
-        "_ZN40_GLOBAL__N__8_flood_cu_116flood_min_kernelILi8EEEvPKf": (
-            "flood_min_kernel<8>"),
+        "_ZN40_GLOBAL__N__8_flood_cu_113flood_min_fewILi8EEEvPKf": (
+            "flood_min_few<8>"),
         "_ZN40_GLOBAL__N__8_flood_stats_cu_118flood_stats_kernelILi5EEEvPKf":
             "flood_stats_kernel<5>",
         "_ZN12_GLOBAL__N_18fps_loopIdLi3EEEvNS_7FpsArgsIT_EE": (

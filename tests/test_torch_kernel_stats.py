@@ -194,7 +194,7 @@ def test_card_k3_cases_reach_fold_and_deferred_max(case):
     assert k3_paths_reached(out, stats) == (True, True)
     lens = (ops[9][1:] - ops[9][:-1]).numpy()
     assert (lens[-1] == 0) == (case == "empty-block")
-    assert out.shape[1] == {"nr1": 1, "dim2": 4}.get(case, 3)
+    assert out.shape[1] == -(-K3_CASES[case]["r_count"] // cf.FEW_RT)
 
 
 def test_main_prints_one_record(capsys, tmp_path):

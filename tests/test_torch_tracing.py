@@ -144,8 +144,11 @@ def test_the_record_counts_the_witnesses_and_the_cache_hits():
         new = stagetimer.counters()
     assert first == {"witnesses_real": 700,
                      "witnesses_padded": cf.witness_total(700),
-                     "k1_inball_pairs": first["k1_inball_pairs"]}
+                     "k1_inball_pairs": first["k1_inball_pairs"],
+                     "k1_samples": first["k1_samples"],
+                     "k1_patch_samples": first["k1_samples"]}
     assert cf.witness_total(700) == 2048 and first["k1_inball_pairs"] > 0
+    assert first["k1_samples"] > 0
     assert again["engine_cache_hit"] == 1 and "witnesses_real" not in again
     assert "engine_cache_hit" not in new and new["witnesses_real"] == 700
 
@@ -181,13 +184,16 @@ def test_k1_device_counters_are_its_stats_and_kept_only_while_tracing():
     engine, sv, w, c, r = _pass_operands()
     stagetimer.reset_counters()
     engine.min_distances(sv, w, c, r, tight=True)
-    assert "k1_inball_pairs" not in stagetimer.counters()
+    assert stagetimer.counters() == {}
     with _profiled():
         engine.min_distances(sv, w, c, r, tight=True)
         engine.min_distances(sv, w, c, r, tight=True)
     _, pairs = cf.kernel_operations(engine.last_stats)
     assert pairs > 0
-    assert stagetimer.counters() == {"k1_inball_pairs": 2 * pairs}
+    slots = engine.prepare(sv, w, c, r, True)[0][0].shape[:3].numel()
+    assert stagetimer.counters() == {"k1_inball_pairs": 2 * pairs,
+                                     "k1_samples": 2 * slots,
+                                     "k1_patch_samples": 2 * slots}
 
 
 def test_reset_counters_zeroes_the_record():
