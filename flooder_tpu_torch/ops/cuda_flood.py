@@ -760,8 +760,15 @@ class CudaFloodEngine:
                                             tight)
         with stage("kernel"):
             acc, self.last_stats = flood_min(*operands)
+            stagetimer.keep(pass_counter(verts), self.last_stats, column=1)
             fence(acc)
         return acc, sperm, num
+
+
+def pass_counter(verts: torch.Tensor) -> str:
+    """The counter that keeps K1's in-ball pairs of one pass a second
+    time, by the pass's simplex dimension: ``k1_inball_pairs_d<d>``."""
+    return f"k1_inball_pairs_d{verts.shape[1] - 1}"
 
 
 def kernel_operations(stats: torch.Tensor) -> Tuple[int, int]:

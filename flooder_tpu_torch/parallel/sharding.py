@@ -37,6 +37,7 @@ import torch
 from ..ops import cuda_flood as cf
 from ..ops.flood import (INTERMEDIATE_BYTES, WITNESS_PAD, _pad_rows,
                          _round_up, batch_windows, flood_min_distances)
+from ..utils import stagetimer
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.stagetimer import fence, stage
 
@@ -301,6 +302,9 @@ class MeshCudaFloodEngine(cf.CudaFloodEngine):
             # on distinct cards run at once
             outs = [[cf.flood_min(*ops) for ops in row] for row in shards]
             self.last_stats = [[s for _, s in row] for row in outs]
+            for row in self.last_stats:
+                for s in row:
+                    stagetimer.keep(cf.pass_counter(verts), s, column=1)
             _, nr, rt, _ = shards[0][0][0].shape
             acc = torch.empty((s_total, nr, rt), dtype=torch.float32,
                               device=verts.device)

@@ -57,6 +57,21 @@ def test_port_vs_flooder_tpu(num_landmarks, use_rand):
         if use_rand
         else {"num_rand": None, "points_per_edge": 10}
     )
+    _assert_port_matches_on_the_torus(num_landmarks, kwargs)
+
+
+@pytest.mark.parametrize("num_landmarks", [20, 150])
+def test_port_vs_flooder_tpu_random_in_several_patches(num_landmarks):
+    """Random mode at 600 samples a simplex: 5 patches of 128 in every
+    pass, each admitting its own work."""
+    from flooder_tpu_torch.ops import cuda_flood as cf
+
+    assert cf._tile_geometry(600, 3)[:2] == (128, 5)
+    _assert_port_matches_on_the_torus(
+        num_landmarks, {"num_rand": 600, "points_per_edge": None})
+
+
+def _assert_port_matches_on_the_torus(num_landmarks, kwargs):
     X = np.asarray(fj.generate_noisy_torus_points_3d(1500, seed=42))
     L = np.asarray(fj.generate_landmarks(X, num_landmarks, start_idx=0))
     np.random.seed(42)

@@ -16,6 +16,7 @@ without it run it as
 import builtins
 import re
 
+import numpy as np
 import pytest
 import torch
 
@@ -145,6 +146,7 @@ def test_the_record_counts_the_witnesses_and_the_cache_hits():
     assert first == {"witnesses_real": 700,
                      "witnesses_padded": cf.witness_total(700),
                      "k1_inball_pairs": first["k1_inball_pairs"],
+                     "k1_inball_pairs_d3": first["k1_inball_pairs"],
                      "k1_samples": first["k1_samples"],
                      "k1_patch_samples": first["k1_samples"]}
     assert cf.witness_total(700) == 2048 and first["k1_inball_pairs"] > 0
@@ -192,8 +194,41 @@ def test_k1_device_counters_are_its_stats_and_kept_only_while_tracing():
     assert pairs > 0
     slots = engine.prepare(sv, w, c, r, True)[0][0].shape[:3].numel()
     assert stagetimer.counters() == {"k1_inball_pairs": 2 * pairs,
+                                     "k1_inball_pairs_d3": 2 * pairs,
                                      "k1_samples": 2 * slots,
                                      "k1_patch_samples": 2 * slots}
+
+
+def _per_pass(got):
+    return {k: v for k, v in got.items()
+            if k.startswith("k1_inball_pairs_d")}
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+def test_k1_pairs_are_kept_again_by_pass_only_while_tracing(mesh):
+    X = _cloud(6, 700)
+    kw = {"mesh": make_mesh(["cpu"] * 4, simplex_parallel=2)} if mesh else {}
+
+    def random_call():
+        np.random.seed(3)
+        return ft.flood_complex(X.clone(), 24, num_rand=150, device="cpu",
+                                **kw)
+
+    stagetimer.reset_counters()
+    random_call()
+    assert stagetimer.records() == [
+        {"mode": "off", "counters": {}, "stage_s": {}}]
+    with _profiled():
+        random_call()
+        rand = stagetimer.counters()
+        ft.flood_complex(X.clone(), 24, points_per_edge=5, max_dimension=2,
+                         device="cpu", **kw)
+        grid = stagetimer.counters()
+    by_pass = _per_pass(rand)
+    assert set(by_pass) == {f"k1_inball_pairs_d{d}" for d in range(4)}
+    assert sum(by_pass.values()) == rand["k1_inball_pairs"] > 0
+    assert by_pass["k1_inball_pairs_d3"] > 0
+    assert _per_pass(grid) == {"k1_inball_pairs_d2": grid["k1_inball_pairs"]}
 
 
 def test_reset_counters_zeroes_the_record():
