@@ -3,9 +3,10 @@
 Counterpart of ``flooder_tpu.ops.pallas_flood`` (its ``PallasFloodEngine``
 and ``_flood_kernel``). What the engine does, per call:
 
-1. Once per cloud (cached by the caller): pad the witnesses cyclically,
-   order them by a balanced k-d split (``kd_order``), and keep the boxes of
-   every chunk of ``WCHUNK`` and every sub-chunk of ``SUB`` witnesses.
+1. Once per cloud (cached by the caller): pad the witnesses with rows at
+   ``WITNESS_PAD``, which fail every ball test, order them by a balanced
+   k-d split (``kd_order``), and keep the boxes of every chunk of
+   ``WCHUNK`` and every sub-chunk of ``SUB`` witnesses.
 2. Per dimension pass: curve-order the sample rows, build ball-local
    sample tiles, tile boxes and the static bound ``ub2`` (``_prep``), the
    (block, chunk) admission ``active`` with the block-to-chunk distance
@@ -67,7 +68,7 @@ import torch
 
 from ..utils import stagetimer
 from ..utils.stagetimer import fence, stage
-from .flood import _sqsum, local_samples
+from .flood import WITNESS_PAD, _sqsum, local_samples
 
 BS = 8  # simplices per block
 RT = 512  # sample points per tile (at most)
@@ -241,7 +242,10 @@ def witness_total(n: int) -> int:
     power-of-two leaf count puts every split on a sub-chunk boundary and
     makes every sub-chunk box a k-d leaf box; any other count leaves
     sub-chunks that straddle two leaves, with loose boxes and more
-    admitted work (measured on the card by chip_smoke.py)."""
+    admitted work (measured on the card by chip_smoke.py). The engine's
+    rows past ``n`` sit at ``WITNESS_PAD``: ``kd_order`` sorts them after
+    every real row, so all leaves but one hold real rows alone or padding
+    rows alone, and no ball meets a leaf of padding rows."""
     leaves = -(-max(n, WCHUNK) // SUB)
     return SUB << max(0, leaves - 1).bit_length()
 
@@ -667,15 +671,19 @@ class CudaFloodEngine:
         stagetimer.count("witnesses_padded", total)
         pts = points
         if total != n:
-            # cyclic padding: duplicates are idempotent under min and keep
-            # the leaf boxes tight
-            reps = points.repeat(-(-total // n), 1)[: total - n]
-            pts = torch.cat([points, reps])
+            # padding rows fail every ball test, so K1 computes no pair of
+            # theirs; being equal and largest on every axis, they stay a
+            # tail of the k-d order, and only one leaf mixes them with
+            # real rows
+            pts = torch.cat([points, points.new_full((total - n, dim),
+                                                     WITNESS_PAD)])
         with stage("engine-init:kd-order"):
             order = kd_order(pts, leaf=SUB)
             fence(order)
         with stage("engine-init:permute+boxes"):
             self.witnesses = pts[order].contiguous()
+            # (n_chunks,) bool: the chunk holds a padding row
+            self.padded_chunks = (order >= n).reshape(-1, WCHUNK).any(1)
             chunks = self.witnesses.reshape(-1, WCHUNK, dim)
             self.chunk_lo = chunks.amin(1)
             self.chunk_hi = chunks.amax(1)
@@ -743,6 +751,7 @@ class CudaFloodEngine:
                 verts_local, weights_p, centers, radii, self.chunk_lo,
                 self.chunk_hi, bs=BS, nr=nr, rt=rt, tight=tight,
             )
+            self.keep_admission(active)
             fence(samples)
         with stage("prep:worklist"):
             blk_ptr, blk_chunks = _worklist(active, dist)
@@ -754,6 +763,15 @@ class CudaFloodEngine:
             blk_ptr, blk_chunks,
         )
         return operands, sperm, num
+
+    def keep_admission(self, active: torch.Tensor) -> None:
+        """While tracing, keep the admitted (block, chunk) entries of a
+        pass (``k1_chunks_admitted``) and those on a chunk that holds a
+        padding row (``k1_chunks_admitted_padded``) as device counters."""
+        if stagetimer.tracing():
+            stagetimer.keep("k1_chunks_admitted", active.sum())
+            stagetimer.keep("k1_chunks_admitted_padded",
+                            (active & self.padded_chunks).sum())
 
     def _run_kernel(self, verts, weights, centers, radii, tight):
         operands, sperm, num = self.prepare(verts, weights, centers, radii,

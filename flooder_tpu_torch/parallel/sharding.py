@@ -222,14 +222,15 @@ class MeshCudaFloodEngine(cf.CudaFloodEngine):
     """The kernel engine (K1) under a ("simplex", "witness") mesh.
 
     The cloud is ordered once on the input device exactly as
-    ``CudaFloodEngine`` orders it (cyclic padding to ``witness_total``,
-    ``kd_order``, chunk and sub-chunk boxes). Per dimension pass, the
-    operands and the (block, chunk) admission are built once on the input
-    device (``_prep``); chunks go to witness shards and blocks to simplex
-    shards by ``balance_chunk_assignment`` of their admitted pairs; each
-    (simplex shard, witness shard) gets its gathered witnesses, rows and a
-    work-list in local chunk ids, nearest first, on its device, and one K1
-    launch. The partial minima are combined by min and the block
+    ``CudaFloodEngine`` orders it (padding rows at ``WITNESS_PAD`` up to
+    ``witness_total``, ``kd_order``, chunk and sub-chunk boxes). Per
+    dimension pass, the operands and the (block, chunk) admission are
+    built once on the input device (``_prep``); chunks go to witness
+    shards and blocks to simplex shards by ``balance_chunk_assignment`` of
+    their admitted pairs, so a chunk of padding rows alone carries none;
+    each (simplex shard, witness shard) gets its gathered witnesses, rows
+    and a work-list in local chunk ids, nearest first, on its device, and
+    one K1 launch. The partial minima are combined by min and the block
     assignment is undone on the input device; the epilogues are the
     single-device engine's.
     """
@@ -262,6 +263,7 @@ class MeshCudaFloodEngine(cf.CudaFloodEngine):
                 self.chunk_lo, self.chunk_hi, bs=cf.BS, nr=nr, rt=rt,
                 tight=tight,
             )
+            self.keep_admission(active)
             fence(samples)
         with stage("prep:shards"):
             n_ss = self.mesh.shape[SIMPLEX_AXIS]

@@ -443,6 +443,67 @@ def test_flood_kernel_patches_match_plain(cuda_device, dim, r_count):
     assert 0 < pairs <= cuda_flood.kernel_operations(stats_t)[1]
 
 
+def mixed_subchunk(engine):
+    """The sub-chunks of an engine's witnesses that hold both real and
+    padding rows (at ``WITNESS_PAD``), as a list of indices."""
+    from flooder_tpu_torch.ops.flood import WITNESS_PAD
+
+    pad = (engine.witnesses == WITNESS_PAD).all(1).reshape(-1, cuda_flood.SUB)
+    return torch.nonzero(pad.any(1) & ~pad.all(1)).flatten().tolist()
+
+
+def padded_cloud_inputs(device, dim, r_count, n=20000, seed=11):
+    """A pass's inputs on a cloud that the engine pads: ``n`` witnesses in
+    [0, 5]^dim, padded to ``witness_total(n)``. As in
+    ``witness_simplex_inputs``, 4 blocks of simplices, each a witness and
+    dim of its 40 nearest, with their bounding balls; the first witness
+    of the first 2 blocks lies in the one sub-chunk that mixes real and
+    padding rows, so their balls meet it. Returns (engine, verts, weights,
+    centers, radii, the mixed sub-chunk)."""
+    from flooder_tpu_torch.ops.flood import simplex_bounding_balls
+
+    rng = np.random.default_rng(seed + dim)
+    X = (rng.random((n, dim)) * 5).astype(np.float32)
+    engine = cuda_flood.CudaFloodEngine(torch.from_numpy(X).to(device))
+    (mixed,) = mixed_subchunk(engine)
+    rows = engine.witnesses[mixed * cuda_flood.SUB:
+                            (mixed + 1) * cuda_flood.SUB].cpu().numpy()
+    # the engine keeps real rows bit for bit, so they are found in X
+    real = np.flatnonzero((X[:, None, :] == rows[None]).all(-1).any(1))
+    S, k = cuda_flood.BS * 4, dim + 1
+    first = np.concatenate([
+        rng.choice(real, S // 2, replace=len(real) < S // 2),
+        rng.choice(len(X), S - S // 2, replace=False)])
+    near = np.argsort(np.linalg.norm(X[None] - X[first][:, None], axis=-1),
+                      1)[:, 1:41]
+    idx = np.stack([np.concatenate([[f], rng.choice(m, k - 1, replace=False)])
+                    for f, m in zip(first, near)])
+    verts = torch.from_numpy(X[idx]).to(device)
+    centers, radii = simplex_bounding_balls(verts)
+    w = rng.random((r_count, k)).astype(np.float32)
+    w /= w.sum(axis=1, keepdims=True)
+    return engine, verts, w, centers, radii, mixed
+
+
+@pytest.mark.parametrize("dim", [2, 3])
+def test_flood_kernel_matches_plain_on_a_padded_cloud(cuda_device, dim):
+    """On the operands of a cloud that the engine pads with rows at
+    ``WITNESS_PAD``, the work-list reaching the one sub-chunk that mixes
+    real and padding rows: K1 against its plain version, d^2 within 1e-6,
+    inf alike, every count equal."""
+    *inputs, mixed = padded_cloud_inputs(cuda_device, dim, 465)
+    ops = inputs[0].prepare(*inputs[1:], True)[0]
+    spc = cuda_flood.WCHUNK // cuda_flood.SUB
+    assert mixed // spc in ops[10].tolist()
+    out_k, stats_k = cuda_flood.flood_min(*ops)
+    out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
+    masked = out_p >= cuda_flood._MASKED_D2
+    assert torch.equal(out_k >= cuda_flood._MASKED_D2, masked)
+    assert not masked.all()
+    assert (out_k[~masked] - out_p[~masked]).abs().max().item() <= 1e-6
+    assert torch.equal(stats_k, stats_p)
+
+
 @pytest.mark.parametrize("r_count", [1, 64, 126, 256, 384])
 @pytest.mark.parametrize("dim", [9, 12, 16, 17, 37, 38, 40, 64])
 def test_flood_kernel_few_samples_past_8_coordinates(cuda_device, dim,

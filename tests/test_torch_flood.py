@@ -9,6 +9,7 @@ import pytest
 import torch
 
 import flooder_tpu as fj
+import flooder_tpu_torch as ft
 from flooder_tpu.ops import flood as flood_j
 from flooder_tpu.ops import pallas_flood as pf
 from flooder_tpu_torch.ops import cuda_flood as cf
@@ -227,6 +228,226 @@ def test_plain_kernel_matches_pallas_interpret(tight):
     np.testing.assert_allclose(got[~inf], want[~inf], atol=1e-5)
     units, pairs = cf.kernel_operations(eng_t.last_stats)
     assert units > 0 and pairs > 0
+
+
+@pytest.fixture
+def one_thread():
+    """K1's plain version is a loop of small torch ops: on one thread it
+    does not contend with the other test workers' threads."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def _cyclic_engine(points):
+    """The engine on the cloud padded to ``witness_total`` by cyclic copies
+    of its rows, as the engine padded it before its padding rows sat at
+    ``WITNESS_PAD``: the copies make the count whole, so the engine adds
+    no row of its own."""
+    n = points.shape[0]
+    total = cf.witness_total(n)
+    reps = points.repeat(-(-total // n), 1)[: total - n]
+    return cf.CudaFloodEngine(torch.cat([points, reps]))
+
+
+def _port_call(monkeypatch, X, L, engine, **kw):
+    """The port's flood_complex on the CPU through ``engine`` (a factory of
+    the kernel engine): (complex as a dict, the engine)."""
+    from flooder_tpu_torch import core
+
+    monkeypatch.setattr(core, "CudaFloodEngine", engine)
+    np.random.seed(5)
+    got = ft.flood_complex(torch.from_numpy(X.copy()), torch.from_numpy(L),
+                           device="cpu", **kw)
+    return got, core._ENGINE_CACHE[-1][2]
+
+
+# (points, coordinates, mode, landmarks in the cloud): every cloud is padded
+PADDED_CLOUDS = [
+    (700, 3, "grid", True), (700, 2, "random", False),
+    (3000, 2, "grid", False), (3000, 3, "random", True),
+    (78000, 3, "grid", True), (78000, 2, "random", False),
+]
+
+
+@pytest.mark.parametrize("n,dim,mode,tight", PADDED_CLOUDS)
+def test_padding_rows_leave_every_value_and_cut_pairs(monkeypatch, one_thread,
+                                                      n, dim, mode, tight):
+    """Padding rows at WITNESS_PAD against cyclic copies, through
+    flood_complex: every filtration value equal bit for bit, each within
+    1e-5 of flooder_tpu's, and fewer in-ball pairs in K1's last pass."""
+    assert cf.witness_total(n) > n
+    rng = np.random.default_rng(n + dim)
+    X = rng.random((n, dim)).astype(np.float32)
+    L = X[rng.choice(n, 24, replace=False)]
+    if not tight:
+        # explicit landmarks, some off the cloud
+        L = L + np.float32(0.1)
+    kw = ({"points_per_edge": 5} if mode == "grid"
+          else {"num_rand": 64, "points_per_edge": None})
+    got, eng = _port_call(monkeypatch, X, L, cf.CudaFloodEngine,
+                          landmarks_in_cloud=tight, **kw)
+    old, eng_old = _port_call(monkeypatch, X, L, _cyclic_engine,
+                              landmarks_in_cloud=tight, **kw)
+    assert eng.witnesses.shape == eng_old.witnesses.shape
+    assert got == old  # bit for bit, inf alike
+    pairs = cf.kernel_operations(eng.last_stats)[1]
+    assert 0 < pairs < cf.kernel_operations(eng_old.last_stats)[1]
+    np.random.seed(5)
+    ref = fj.flood_complex(X, L, use_pallas=False, **kw)
+    assert set(ref) == set(got)
+    for simplex, val in ref.items():
+        if np.isinf(val):
+            assert np.isinf(got[simplex]), simplex
+        else:
+            assert abs(got[simplex] - val) < 1e-5, (simplex, val)
+
+
+def test_an_unpadded_cloud_runs_as_before(monkeypatch, one_thread):
+    """16,384 points fill 32 leaves of 512: no padding row, the same
+    witnesses and the same pairs as the cyclic engine."""
+    rng = np.random.default_rng(3)
+    X = rng.random((16384, 3)).astype(np.float32)
+    L = X[rng.choice(len(X), 24, replace=False)]
+    got, eng = _port_call(monkeypatch, X, L, cf.CudaFloodEngine,
+                          points_per_edge=5)
+    old, eng_old = _port_call(monkeypatch, X, L, _cyclic_engine,
+                              points_per_edge=5)
+    assert cf.witness_total(16384) == 16384
+    assert torch.equal(eng.witnesses, eng_old.witnesses)
+    assert not eng.padded_chunks.any()
+    assert got == old
+    assert torch.equal(eng.last_stats, eng_old.last_stats)
+
+
+@pytest.mark.parametrize(
+    "n,dim,scale,offset",
+    [(700, 3, 1.0, 0.0), (2049, 1, 1.0, 0.0), (3000, 2, 1e-4, -3.0),
+     (9000, 5, 1e6, 2e6), (5000, 9, 1.0, 0.0), (78000, 3, 1.0, 0.0)],
+)
+def test_padding_rows_share_one_subchunk_with_real_rows(n, dim, scale,
+                                                        offset):
+    """Whatever the cloud's scale: the padding rows are the tail of the k-d
+    order, at most one sub-chunk mixes them with real rows, the real rows
+    are the cloud's, and ``padded_chunks`` names the chunks that hold a
+    padding row."""
+    from flooder_tpu_torch.ops.flood import WITNESS_PAD
+    from test_torch_cuda import mixed_subchunk
+
+    rng = np.random.default_rng(n)
+    X = (rng.random((n, dim)) * scale + offset).astype(np.float32)
+    eng = cf.CudaFloodEngine(torch.from_numpy(X))
+    pad = (eng.witnesses == WITNESS_PAD).all(1)
+    assert int(pad.sum()) == cf.witness_total(n) - n
+    assert not pad[:n].any() and pad[n:].all()
+    assert len(mixed_subchunk(eng)) == int(n % cf.SUB != 0)
+    real = eng.witnesses[:n].numpy()
+    np.testing.assert_array_equal(real[np.lexsort(real.T)],
+                                  X[np.lexsort(X.T)])
+    np.testing.assert_array_equal(eng.padded_chunks.numpy(),
+                                  pad.reshape(-1, cf.WCHUNK).any(1).numpy())
+
+
+def test_no_padding_row_lies_in_a_ball_that_holds_the_cloud(one_thread):
+    """Explicit landmarks off the cloud's box, with balls enlarged to hold
+    the whole box: no padding row lies in any ball, no pair of one is
+    computed, and every value equals the cyclic engine's."""
+    from flooder_tpu_torch.ops.flood import WITNESS_PAD
+    from flooder_tpu_torch.topology import DelaunayComplex
+
+    rng = np.random.default_rng(8)
+    X = rng.random((3000, 3)).astype(np.float32)
+    L = (rng.random((16, 3)) * 3 - 1).astype(np.float32)
+    tets = DelaunayComplex(L.astype(np.float64)).create_simplex_tree()
+    sv = torch.from_numpy(L[tets._verts[3]])
+    c, _ = simplex_bounding_balls(sv)
+    corners = torch.tensor(np.stack(np.meshgrid(*[[0.0, 1.0]] * 3),
+                                    -1).reshape(-1, 3), dtype=torch.float32)
+    r = torch.cdist(c, corners).amax(1) * 1.01
+    eng = cf.CudaFloodEngine(torch.from_numpy(X))
+    pad_row = torch.full((3,), WITNESS_PAD)
+    assert bool(((pad_row - c) ** 2).sum(1).gt(r * r).all())
+    assert bool((torch.cdist(c, torch.from_numpy(X)) <= r[:, None]).all())
+    w = _grid_host_weights(6)
+    got = eng.min_distances(sv, w, c, r, tight=False)
+    old_eng = _cyclic_engine(torch.from_numpy(X))
+    want = old_eng.min_distances(sv, w, c, r, tight=False)
+    assert torch.equal(got, want) and bool(torch.isfinite(got).all())
+    pairs = cf.kernel_operations(eng.last_stats)[1]
+    assert 0 < pairs < cf.kernel_operations(old_eng.last_stats)[1]
+    # every pair K1 counted is a real witness's: at most all real
+    # witnesses against every sample slot of every admitted simplex
+    ops = eng.prepare(sv, w, c, r, False)[0]
+    slots = ops[0].shape[1] * ops[0].shape[2]
+    assert pairs <= len(sv) * slots * len(X)
+
+
+def _grid_host_weights(ppe):
+    from flooder_tpu.core import _grid_host
+
+    return _grid_host(ppe, 3)[0]
+
+
+def test_the_mixed_subchunk_reaches_the_card_tests_worklist(one_thread):
+    """The operands of ``test_torch_cuda.py``'s padded-cloud case list the
+    chunk of the one mixed sub-chunk, whose box meets a ball of a block
+    that visits it, and the plain K1 runs them with finite minima."""
+    from test_torch_cuda import padded_cloud_inputs
+
+    *inputs, mixed = padded_cloud_inputs("cpu", 3, 465)
+    eng = inputs[0]
+    ops = eng.prepare(*inputs[1:], True)[0]
+    spc = cf.WCHUNK // cf.SUB
+    blk_ptr, blk_chunks = ops[9].tolist(), ops[10].tolist()
+    blocks = [b for b in range(len(blk_ptr) - 1)
+              if mixed // spc in blk_chunks[blk_ptr[b]:blk_ptr[b + 1]]]
+    assert blocks
+    lo, hi = eng.sub_lo[mixed], eng.sub_hi[mixed]
+    c, r = ops[4], ops[5]
+    near = torch.minimum(torch.maximum(c, lo), hi) - c
+    meets = (near * near).sum(1) <= r * r
+    assert any(bool(meets[b * cf.BS:(b + 1) * cf.BS].any()) for b in blocks)
+    out, _ = cf.flood_pairs_reference(*ops)
+    assert bool((out < cf._MASKED_D2).any())
+
+
+def test_mesh_gives_padding_only_chunks_no_work(one_thread):
+    """Under a 1x4 mesh no work-list of a witness shard names a chunk of
+    padding rows alone, and the values equal one device's."""
+    from flooder_tpu_torch.ops.flood import WITNESS_PAD
+    from flooder_tpu_torch.parallel import MeshCudaFloodEngine, make_mesh
+
+    X, sv, w, c, r = _padded_pass(9000)
+    mesh = make_mesh(["cpu"] * 4, simplex_parallel=1)
+    eng = MeshCudaFloodEngine(X, mesh)
+    assert int(cf.witness_total(9000) // cf.WCHUNK) == 8
+    shards = eng.shard_operands(sv, w, c, r, True)[0]
+    only_pad = 0
+    for row in shards:
+        for ops in row:
+            chunk_pad = (ops[1] == WITNESS_PAD).all(1).reshape(
+                -1, cf.WCHUNK).all(1)
+            only_pad += int(chunk_pad.sum())
+            assert not chunk_pad[ops[10].long()].any()
+    assert only_pad == 3
+    got = eng.min_distances(sv, w, c, r, tight=True)
+    want = cf.CudaFloodEngine(X).min_distances(sv, w, c, r, tight=True)
+    assert torch.equal(got, want)
+
+
+def _padded_pass(n, lms=20, seed=4):
+    """A 3-D grid pass on a padded cloud of ``n`` points whose vertices are
+    witnesses: (cloud, verts, weights, centers, radii)."""
+    from flooder_tpu_torch.topology import DelaunayComplex
+
+    rng = np.random.default_rng(seed)
+    X = torch.from_numpy(rng.random((n, 3)).astype(np.float32))
+    L = X[torch.from_numpy(rng.choice(n, lms, replace=False))]
+    tets = DelaunayComplex(L.double().numpy()).create_simplex_tree()._verts[3]
+    sv = L[torch.as_tensor(tets).long()]
+    c, r = simplex_bounding_balls(sv)
+    return X, sv, _grid_host_weights(6), c, r
 
 
 @pytest.mark.parametrize(

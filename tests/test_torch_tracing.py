@@ -148,9 +148,11 @@ def test_the_record_counts_the_witnesses_and_the_cache_hits():
                      "k1_inball_pairs": first["k1_inball_pairs"],
                      "k1_inball_pairs_d3": first["k1_inball_pairs"],
                      "k1_samples": first["k1_samples"],
-                     "k1_patch_samples": first["k1_samples"]}
+                     "k1_patch_samples": first["k1_samples"],
+                     "k1_chunks_admitted": first["k1_chunks_admitted"],
+                     "k1_chunks_admitted_padded": first["k1_chunks_admitted"]}
     assert cf.witness_total(700) == 2048 and first["k1_inball_pairs"] > 0
-    assert first["k1_samples"] > 0
+    assert first["k1_samples"] > 0 and first["k1_chunks_admitted"] > 0
     assert again["engine_cache_hit"] == 1 and "witnesses_real" not in again
     assert "engine_cache_hit" not in new and new["witnesses_real"] == 700
 
@@ -192,11 +194,88 @@ def test_k1_device_counters_are_its_stats_and_kept_only_while_tracing():
         engine.min_distances(sv, w, c, r, tight=True)
     _, pairs = cf.kernel_operations(engine.last_stats)
     assert pairs > 0
-    slots = engine.prepare(sv, w, c, r, True)[0][0].shape[:3].numel()
+    ops = engine.prepare(sv, w, c, r, True)[0]
+    slots = ops[0].shape[:3].numel()
+    # one chunk of 2,048 witnesses, which holds padding rows
+    entries = int(ops[9][-1])
+    assert engine.padded_chunks.tolist() == [True] and entries > 0
     assert stagetimer.counters() == {"k1_inball_pairs": 2 * pairs,
                                      "k1_inball_pairs_d3": 2 * pairs,
                                      "k1_samples": 2 * slots,
-                                     "k1_patch_samples": 2 * slots}
+                                     "k1_patch_samples": 2 * slots,
+                                     "k1_chunks_admitted": 2 * entries,
+                                     "k1_chunks_admitted_padded": 2 * entries}
+
+
+@pytest.mark.parametrize("mesh", [False, True])
+def test_admission_counters_read_what_active_holds(monkeypatch, mesh):
+    """``k1_chunks_admitted`` counts the True entries of a pass's
+    ``active`` and ``k1_chunks_admitted_padded`` those on a chunk that
+    holds a padding row, on one device and under a mesh; with tracing off
+    neither is kept."""
+    from flooder_tpu_torch.parallel import MeshCudaFloodEngine
+
+    X = _cloud(7, 5000)  # 4 chunks: 2 real, 1 mixed, 1 of padding alone
+    engine = (MeshCudaFloodEngine(X, make_mesh(["cpu"] * 4,
+                                               simplex_parallel=2))
+              if mesh else cf.CudaFloodEngine(X))
+    assert engine.padded_chunks.tolist() == [False, False, True, True]
+    L = X[torch.randperm(5000, generator=torch.Generator().manual_seed(2))
+          [:24]]
+    from flooder_tpu_torch.topology import DelaunayComplex
+
+    tets = DelaunayComplex(L.double().numpy()).create_simplex_tree()._verts[3]
+    sv = L[torch.as_tensor(tets).long()]
+    c, r = simplex_bounding_balls(sv)
+    w = _grid_host(6, 3)[0]
+    seen = []
+    real_prep = cf._prep
+
+    def prep(*a, **kw):
+        out = real_prep(*a, **kw)
+        seen.append(out[4])
+        return out
+
+    monkeypatch.setattr(cf, "_prep", prep)
+    stagetimer.reset_counters()
+    engine.min_distances(sv, w, c, r, tight=True)
+    assert stagetimer.counters() == {}
+    with _profiled():
+        stagetimer.new_record()
+        engine.min_distances(sv, w, c, r, tight=True)
+        got = stagetimer.counters()
+    active = seen[-1]
+    assert got["k1_chunks_admitted"] == int(active.sum())
+    assert got["k1_chunks_admitted_padded"] == int(active[:, 2:].sum())
+    assert 0 < got["k1_chunks_admitted_padded"] < got["k1_chunks_admitted"]
+    assert not active[:, 3].any()  # the chunk of padding rows alone
+
+
+def test_the_benchmark_reads_the_padded_share_of_admission(monkeypatch):
+    """``flood_bench/metrics/k1_padded_admit_pct.py`` over a profiled
+    call: 100 x the admitted entries on chunks with padding rows over all
+    admitted entries; nothing for a program without the counters."""
+    import importlib.util
+    from pathlib import Path
+
+    bench = Path(__file__).resolve().parents[1] / "flood_bench"
+    monkeypatch.syspath_prepend(str(bench))
+    spec = importlib.util.spec_from_file_location(
+        "k1_padded_admit_pct", bench / "metrics" / "k1_padded_admit_pct.py")
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    stagetimer.reset_counters()
+    with _profiled():
+        _call(_cloud(8, 5000))
+    got = stagetimer.counters()
+    assert 0 < got["k1_chunks_admitted_padded"] < got["k1_chunks_admitted"]
+    assert reader.read({"n_profiled": 1}) == pytest.approx(
+        100.0 * got["k1_chunks_admitted_padded"] / got["k1_chunks_admitted"])
+    stagetimer.reset_counters()
+    with _profiled():
+        stagetimer.new_record()
+        stagetimer.count("witnesses_real", 5)
+    assert reader.read({"n_profiled": 1}) is None
 
 
 def _per_pass(got):
