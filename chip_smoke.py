@@ -408,22 +408,16 @@ def top_pass_inputs(engine, landmarks, ppe):
     """What flood_complex hands an engine in its top-dimension pass (grid
     mode): the top simplices' vertices, the grid weights, and their balls'
     centers and radii, in the engine's visit order."""
-    import torch
-
-    from flooder_tpu_torch.core import _grid_host
-    from flooder_tpu_torch.ops.flood import simplex_bounding_balls
+    from flooder_tpu_torch.core import _grid_host, pass_inputs
     from flooder_tpu_torch.topology import DelaunayComplex
 
-    dev = landmarks.device
     dim = landmarks.shape[1]
     stree = DelaunayComplex(
         landmarks.cpu().numpy().astype(np.float64)
     ).create_simplex_tree()
-    top = torch.as_tensor(stree._verts[dim], device=dev).long()
-    verts = landmarks[top]
-    centers, radii = simplex_bounding_balls(verts)
-    order = torch.as_tensor(engine.order(centers), device=dev)
-    return verts[order], _grid_host(ppe, dim)[0], centers[order], radii[order]
+    verts, centers, radii, _ = pass_inputs(landmarks, stree._verts[dim],
+                                           engine)
+    return verts, _grid_host(ppe, dim)[0], centers, radii
 
 
 def top_pass_operands(engine, landmarks, ppe, tight=True):
@@ -620,9 +614,9 @@ def wide_occupancy(build):
     # coordinates (one slab) and 64 (slabs)
     from flooder_tpu_torch.ops import cuda_flood
 
-    threads = 32 * getattr(cuda_flood, "FEW_WIDE_WARPS", 0)
+    threads = 32 * cuda_flood.FEW_WIDE_WARPS
     for dim in (WIDE_DIM, 16, max(WIDE_DIMS)):
-        name = threads and cuda_flood.k1_instance(cuda_flood.FEW_RT, dim)
+        name = cuda_flood.k1_instance(cuda_flood.FEW_RT, dim)
         if name in regs:
             r, static = regs[name]
             total = static + k1_dyn_smem(name, dim)
@@ -672,33 +666,19 @@ def real_pairs(stats, nr, rt, r_count):
                for r, p in enumerate(per_tile))
 
 
-def k1_launch_shape(ops, tiled=False):
+def k1_launch_shape(ops):
     """(instance, CTAs, threads a CTA) of K1's launch on these operands: the
-    instance ``cuda_flood.k1_instance`` names (a checkout without it: the
-    few-sample instance for tiles of FEW_RT samples at 1-8 coordinates, else
-    the instance for tiles of up to 512), or with ``tiled`` flood_min_wide,
-    as ``cuda_flood.flood_min_tiled`` launches it past 8 coordinates."""
+    instance ``cuda_flood.k1_instance`` names."""
     from flooder_tpu_torch.ops import cuda_flood
 
     s_total, nr, rt, dim = ops[0].shape
     n_blk = s_total // cuda_flood.BS
-    if tiled:
-        inst = "flood_min_wide"
-    elif hasattr(cuda_flood, "k1_instance"):
-        inst = cuda_flood.k1_instance(rt, dim)
-    elif dim > cuda_flood.KERNEL_MAX_DIM:
-        inst = "flood_min_wide"
-    elif rt == getattr(cuda_flood, "FEW_RT", None):
-        inst = f"flood_min_few<{dim}>"
-    else:
-        inst = f"flood_min_kernel<{dim}>"
+    inst = cuda_flood.k1_instance(rt, dim)
     if inst.startswith("flood_min_few"):
         warps = (cuda_flood.FEW_WARPS if dim <= cuda_flood.KERNEL_MAX_DIM
                  else cuda_flood.FEW_WIDE_WARPS)
         return inst, -(-n_blk * cuda_flood.BS * nr // warps), 32 * warps
-    if inst == "flood_min_wide":
-        return inst, n_blk * nr, rt // 2
-    return inst, n_blk * nr, rt // 4
+    return inst, n_blk * nr, rt // 2  # flood_min_wide
 
 
 def k1_env():
@@ -735,14 +715,13 @@ def k1_dyn_smem(inst, dim):
     return int(fn(dim))
 
 
-def launch_record(ops, stats, r_count, env, tiled=False):
-    """K1's launch on these operands (``tiled``: as k1_launch_shape): its
-    shape, derived occupancy, work (units, in-ball pairs on real samples and
-    on all slots), bound and issue floor, both on real samples. Returns
-    (record, text)."""
+def launch_record(ops, stats, r_count, env):
+    """K1's launch on these operands: its shape, derived occupancy, work
+    (units, in-ball pairs on real samples and on all slots), bound and issue
+    floor, both on real samples. Returns (record, text)."""
     from flooder_tpu_torch.ops import cuda_flood
 
-    inst, ctas, threads = k1_launch_shape(ops, tiled)
+    inst, ctas, threads = k1_launch_shape(ops)
     s_total, nr, rt, dim = ops[0].shape
     units, padded = cuda_flood.kernel_operations(stats)
     real = real_pairs(stats, nr, rt, r_count)
@@ -792,13 +771,7 @@ def random_mode_run(X, landmarks, num_rand, top_dim, what):
         calls.append((ops, res))
         return res
 
-    # a checkout whose few-sample instances take these tiles counts them
-    few_count = hasattr(cuda_flood, "FEW_LAUNCHES") and (
-        X.shape[1] <= cuda_flood.KERNEL_MAX_DIM
-        or hasattr(cuda_flood, "k1_instance"))
-    cuda_fps.LAUNCHES = cuda_flood.LAUNCHES = 0
-    if few_count:
-        cuda_flood.FEW_LAUNCHES = 0
+    cuda_fps.LAUNCHES = cuda_flood.LAUNCHES = cuda_flood.FEW_LAUNCHES = 0
     np.random.seed(FEW_WEIGHT_SEED)
     torch.cuda.synchronize()
     buf = io.StringIO()
@@ -818,14 +791,12 @@ def random_mode_run(X, landmarks, num_rand, top_dim, what):
             t2 = time.perf_counter()
     finally:
         stagetimer.ENABLED, cuda_flood.flood_min = False, k1
-    launches = {"fps": cuda_fps.LAUNCHES, "flood": cuda_flood.LAUNCHES}
-    if few_count:
-        launches["flood_few"] = cuda_flood.FEW_LAUNCHES
+    launches = {"fps": cuda_fps.LAUNCHES, "flood": cuda_flood.LAUNCHES,
+                "flood_few": cuda_flood.FEW_LAUNCHES}
     log(f"{what} launches (one run): {launches}")
     passes = top_dim + 1
-    if (launches["fps"], launches["flood"], len(calls)) != (
-            1, passes, passes) or (few_count and
-                                   launches["flood_few"] != passes):
+    if (launches["fps"], launches["flood"], launches["flood_few"],
+            len(calls)) != (1, passes, passes, passes):
         raise AssertionError(f"{what} must launch K2 once and K1's "
                              f"few-sample instances once a pass: {launches}")
     split = {}
@@ -1535,17 +1506,14 @@ def few_wide_grid(env):
     """K1's few-sample instances past 8 coordinates (flood_min_few_wide at
     9-16, flood_min_few_slabs past 16) on seeded operands at FEW_WIDE_DIMS x
     FEW_WIDE_R: against the plain version (the runtime-width bar, inf in
-    place, every count equal, one few-sample launch each), against
-    flood_min_wide on the same 128-sample tiles (``flood_min_tiled``: bit
-    for bit, the same counts) and against K3's runtime-width instance (bit
-    for bit, its computed tiles equal to K1's units). Returns {"dim-R": max
-    |d2 diff|}."""
+    place, every count equal, one few-sample launch each) and against K3's
+    runtime-width instance (bit for bit, its computed tiles equal to K1's
+    units). Returns {"dim-R": max |d2 diff|}."""
     import torch
 
     from flooder_tpu_torch.ops import cuda_flood, cuda_flood_stats
 
     dev = torch.device("cuda")
-    tiled = getattr(cuda_flood, "flood_min_tiled", None)
     errs = {}
     for dim in FEW_WIDE_DIMS:
         share, units, n_inf, n_masked, insts = 0.0, [], 0, 0, set()
@@ -1553,12 +1521,10 @@ def few_wide_grid(env):
             ops = seeded_flood_operands(dim, dev, r_count=r_count)
             what = f"K1 at {dim} coordinates, {r_count} samples a simplex"
             insts.add(k1_launch_shape(ops)[0])
-            before = (cuda_flood.LAUNCHES,
-                      getattr(cuda_flood, "FEW_LAUNCHES", 0))
+            before = (cuda_flood.LAUNCHES, cuda_flood.FEW_LAUNCHES)
             out_k, stats_k = cuda_flood.flood_min(*ops)
             torch.cuda.synchronize()
-            if tiled is not None and (
-                    cuda_flood.LAUNCHES, cuda_flood.FEW_LAUNCHES) != (
+            if (cuda_flood.LAUNCHES, cuda_flood.FEW_LAUNCHES) != (
                     before[0] + 1, before[1] + 1):
                 raise AssertionError(f"{what}: not one few-sample launch")
             out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
@@ -1566,12 +1532,6 @@ def few_wide_grid(env):
             if not torch.equal(stats_k, stats_p):
                 raise AssertionError(f"{what}: counts differ from the plain "
                                      "version's")
-            if tiled is not None:
-                out_t, stats_t = tiled(*ops)
-                if not (torch.equal(out_k, out_t)
-                        and torch.equal(stats_k, stats_t)):
-                    raise AssertionError(f"{what}: differs from "
-                                         "flood_min_wide at rt 128")
             out_3, stats_3 = cuda_flood_stats.flood_min_stats(*ops)
             units.append(cuda_flood.kernel_operations(stats_k)[0])
             if not (torch.equal(out_3, out_k) and stats_3[
@@ -1588,9 +1548,7 @@ def few_wide_grid(env):
             f"version (largest share of the 2 * dim * 2**-24 * d2 bar "
             f"{share:.4f}), inf in the same places ({n_masked - n_inf} finite "
             f">= 1e30, {n_inf} +inf), every count equal; "
-            + ("== flood_min_wide at rt 128 bit for bit with its counts; "
-               if tiled is not None else "")
-            + f"K3 == K1, tiles == units {units}")
+            f"K3 == K1, tiles == units {units}")
     return errs
 
 
@@ -1599,16 +1557,11 @@ def wide_random_mode(X, env):
     cheese), its WIDE_LANDMARKS K2 landmarks, max_dimension WIDE_TOP_DIM,
     num_rand WIDE_NUM_RAND (``np.random.seed`` fixed), through
     random_mode_run; each pass's K1 timed on its own operands (mean of
-    WIDE_RANDOM_REPS after a warm-up) beside flood_min_wide on the same
-    128-sample tiles (what they took before the few-sample instance: bit for
-    bit, the same counts), and held against its plain version on 2 whole
-    blocks; bounds and issue floors on real samples. Returns the numbers of
-    the kernels line."""
-    import torch
-
+    WIDE_RANDOM_REPS after a warm-up) and held against its plain version on
+    2 whole blocks; bounds and issue floors on real samples. Returns the
+    numbers of the kernels line."""
     from flooder_tpu_torch.ops import cuda_flood
 
-    tiled = getattr(cuda_flood, "flood_min_tiled", cuda_flood.flood_min)
     out = {}
     for num_rand in WIDE_NUM_RAND:
         what = f"wide random mode num_rand {num_rand}"
@@ -1616,31 +1569,17 @@ def wide_random_mode(X, env):
         passes = []
         for d, (ops, (out_k, stats_k)) in enumerate(run["calls"]):
             ms = cuda_ms(lambda: cuda_flood.flood_min(*ops), WIDE_RANDOM_REPS)
-            got = []  # the warm-up's result
-            tiled_ms = cuda_ms(lambda: got.append(tiled(*ops)) if not got
-                               else tiled(*ops), WIDE_RANDOM_REPS)
-            out_t, stats_t = got.pop()
-            if not (torch.equal(out_k, out_t)
-                    and torch.equal(stats_k, stats_t)):
-                raise AssertionError(f"{what}, pass {d}: differs from "
-                                     "flood_min_wide at rt 128")
-            del out_t, stats_t
             rec, text = launch_record(ops, stats_k, num_rand, env)
-            rec_t, text_t = launch_record(ops, stats_k, num_rand, env, True)
             err, blocks, pairs = plain_on_blocks(
                 ops, out_k, stats_k, f"{what}, pass {d}")
             passes.append(dict(
                 dim=d, simplices=run["simplices"][d], ms=ms,
-                tiled_ms=tiled_ms, tiled_ctas=rec_t["ctas"],
-                tiled_threads=rec_t["threads"], max_abs_err_on_blocks=err,
-                **rec))
+                max_abs_err_on_blocks=err, **rec))
             log(f"{what}, pass {d} ({run['simplices'][d]} simplices): kernel "
-                f"{ms:.3f} ms, flood_min_wide at rt 128 {tiled_ms:.3f} ms "
-                f"(means of {WIDE_RANDOM_REPS} after a warm-up, the pass's own "
-                f"operands; equal bit for bit, the same counts); {text}; "
-                f"flood_min_wide: {text_t.split(', ', 1)[1].split('), ')[0]}"
-                f"); plain version on blocks {blocks} ({pairs} pairs): max "
-                f"|d2 diff| {err}, every count equal")
+                f"{ms:.3f} ms (mean of {WIDE_RANDOM_REPS} after a warm-up, "
+                f"the pass's own operands); {text}; plain version on blocks "
+                f"{blocks} ({pairs} pairs): max |d2 diff| {err}, every count "
+                "equal")
         out[str(num_rand)] = dict(passes=passes, **{k: run[k] for k in (
             "launches", "complex_s", "persistence_s", "stage_split_s",
             "bars", "simplices")})
@@ -1648,9 +1587,7 @@ def wide_random_mode(X, env):
             f"monotone, one essential H0 class; diagram sizes {run['bars']}; "
             f"landmarks + flood_complex {run['complex_s']:.4f}s, persistence "
             f"{run['persistence_s']:.4f}s (host clock, fenced stages); K1 "
-            f"{sum(p['ms'] for p in passes):.3f} ms over the passes "
-            f"(flood_min_wide at rt 128: "
-            f"{sum(p['tiled_ms'] for p in passes):.3f} ms)")
+            f"{sum(p['ms'] for p in passes):.3f} ms over the passes")
         log(f"{what} stage split (s, fenced; nested stages overlap): "
             f"{json.dumps(run['stage_split_s'])}")
         del run, ops, out_k, stats_k
@@ -1809,9 +1746,8 @@ def main(argv=None):
         f"flood_stats in parallel; per source {build.BUILD_SECONDS}")
     raw8 = cuda_flood.SUB * 8 * 4  # K3's raw buffer at DIM 8
     # (rt, kernel, threads a CTA, dynamic shared bytes; K3 at nr 39, the main
-    # path's 4,960 samples a simplex); an older checkout (--only few from its
-    # root) has no few-sample instances
-    few_threads = 32 * getattr(cuda_flood, "FEW_WARPS", 1)
+    # path's 4,960 samples a simplex)
+    few_threads = 32 * cuda_flood.FEW_WARPS
     occupancy_of = {
         "flood": [(128, "flood_min_few", few_threads, lambda d: 0)],
         "flood_stats": [(128, "flood_stats_kernel", 256, lambda d: (

@@ -232,6 +232,27 @@ def _min_combine_faces(faces: np.ndarray, vals: np.ndarray):
     return faces[order[starts]], mins
 
 
+def pass_inputs(landmarks: torch.Tensor, simplices: np.ndarray, engine):
+    """The inputs of one dimension pass in ``engine``'s visit order.
+
+    Args:
+        landmarks: (L, dim) landmark coordinates.
+        simplices: (S, k) landmark indices, one Delaunay level.
+        engine: a flood engine (its ``order`` of the ball centers).
+
+    Returns:
+        (sim_verts (S, k, dim), centers (S, dim), radii (S,),
+        simplices_sorted (S, k) numpy), rows in visit order.
+    """
+    dev = landmarks.device
+    sim_verts = landmarks[torch.as_tensor(simplices, device=dev).long()]
+    centers, radii = simplex_bounding_balls(sim_verts)
+    order_host = engine.order(centers)
+    order = torch.as_tensor(order_host, device=dev)
+    return (sim_verts[order], centers[order], radii[order],
+            simplices[order_host])
+
+
 def flood_complex(
     points,
     landmarks: Union[int, torch.Tensor, np.ndarray],
@@ -356,7 +377,6 @@ def flood_complex(
             f"landmarks.dtype ({landmarks.dtype}) != points.dtype "
             f"({points.dtype})"
         )
-    dev = points.device
 
     with stage("landmarks-d2h"):
         lms_host = landmarks.detach().cpu().numpy().astype(np.float64)
@@ -395,40 +415,22 @@ def flood_complex(
         if d >= len(levels):
             continue
         d_simplices = levels[d]
-        num_simplices = d_simplices.shape[0]
-        if num_simplices == 0:
+        if d_simplices.shape[0] == 0:
             continue
 
         with stage(f"dim{d}:balls+order"):
-            sim_verts = landmarks[torch.as_tensor(d_simplices, device=dev)
-                                  .long()]  # (S, d+1, dim)
-            centers, radii = simplex_bounding_balls(sim_verts)
-            order_host = engine.order(centers)
-            order = torch.as_tensor(order_host, device=dev)
-            sim_verts = sim_verts[order]
-            centers = centers[order]
-            radii = radii[order]
-            simplices_sorted = d_simplices[order_host]
+            sim_verts, centers, radii, simplices_sorted = pass_inputs(
+                landmarks, d_simplices, engine)
 
-        bsz = num_simplices if batch_size is None else int(batch_size)
         if num_rand is None:
             weights, vertex_idxs, face_idxs = _grid_host(
                 points_per_edge, max_dimension
             )
             with stage(f"dim{d}:distances"):
-                if dense:
-                    dists = engine.min_distances(
-                        sim_verts, weights, centers, radii, bsz
-                    )  # (S, R)
-                    faces_max = [
-                        dists[:, torch.as_tensor(t, device=dev)].amax(-1)
-                        for t in face_idxs
-                    ]
-                else:
-                    faces_max = engine.min_distances_facemax(
-                        sim_verts, weights, centers, radii, tight=tight,
-                        face_tables=face_idxs,
-                    )
+                faces_max = engine.min_distances_facemax(
+                    sim_verts, weights, centers, radii, batch_size=batch_size,
+                    tight=tight, face_tables=face_idxs,
+                )
                 fvals_all = [f.cpu().numpy() for f in faces_max]
             with stage(f"dim{d}:assembly"):
                 # A face shared by several top simplices takes the min of
@@ -445,15 +447,10 @@ def flood_complex(
             weights = generate_uniform_weights(num_rand, d, device="cpu",
                                                dtype=dtype)
             with stage(f"dim{d}:distances"):
-                if dense:
-                    vals = engine.min_distances(
-                        sim_verts, weights, centers, radii, bsz
-                    ).amax(-1)
-                else:
-                    vals = engine.min_distances_facemax(
-                        sim_verts, weights, centers, radii, tight=tight,
-                        face_tables=None,
-                    )
+                vals = engine.min_distances_facemax(
+                    sim_verts, weights, centers, radii, batch_size=batch_size,
+                    tight=tight, face_tables=None,
+                )
                 vals_host = vals.cpu().numpy()
             with stage(f"dim{d}:assembly"):
                 stree.assign_filtrations(d, simplices_sorted, vals_host)

@@ -88,10 +88,9 @@ KERNEL_MAX_DIM = 8
 # The widest one-slab few-sample instance; past it the slab one.
 FEW_ONE_SLAB_DIM = 16
 
-# Kernel launches through ``flood_min`` and ``flood_min_tiled`` (CUDA
-# tensors only), as counted by ``flood_min_launch`` and
-# ``flood_min_few_launch`` while they enqueue them; FEW_LAUNCHES counts
-# those of the few-sample instances alone.
+# Kernel launches through ``flood_min`` (CUDA tensors only), as counted by
+# ``flood_min_launch`` and ``flood_min_few_launch`` while they enqueue them;
+# FEW_LAUNCHES counts those of the few-sample instances alone.
 LAUNCHES = 0
 FEW_LAUNCHES = 0
 
@@ -569,31 +568,11 @@ def flood_min(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
     stagetimer.count("k1_samples", n)
     if rt == FEW_RT:
         stagetimer.count("k1_patch_samples", n)
-    few = samples.device.type != "cpu" and k1_instance(
-        rt, dim).startswith("flood_min_few")
-    return _flood_min(operands, few)
-
-
-def flood_min_tiled(samples, witnesses, sub_lo, sub_hi, centers, radii,
-                    tile_lo, tile_hi, ub2, blk_ptr, blk_chunks):
-    """K1 past KERNEL_MAX_DIM coordinates through ``flood_min_wide`` (a CTA
-    a block and tile) at any tile size, tiles of FEW_RT samples too: a second
-    route for those tiles, which no entry point takes; the card checks hold
-    the few-sample instances past 8 coordinates to it (the same output bit
-    for bit, the same counts). At 1-8 coordinates the launch refuses CUDA
-    tensors. CPU tensors go to ``flood_pairs_reference``."""
-    return _flood_min((samples, witnesses, sub_lo, sub_hi, centers, radii,
-                       tile_lo, tile_hi, ub2, blk_ptr, blk_chunks), False)
-
-
-def _flood_min(operands, few: bool):
-    """Launch K1's few-sample (``few``) or tiled launch on CUDA operands;
-    CPU operands go to the plain version."""
-    samples = operands[0]
     if samples.device.type == "cpu":
         out, stats = flood_pairs_reference(*operands)
     else:
-        out, stats = _launch(operands, few)
+        out, stats = _launch(operands, k1_instance(rt, dim).startswith(
+            "flood_min_few"))
     stagetimer.keep("k1_inball_pairs", stats, column=1)
     return out, stats
 
@@ -738,9 +717,17 @@ class CudaFloodEngine:
     def prepare(self, verts, weights, centers, radii, tight):
         """Kernel operands of one pass: returns (operands tuple for
         ``flood_min``, sperm, number of real simplices)."""
-        num, k, dim = verts.shape
+        per_simplex, active, dist, sperm, num = self._pass_operands(
+            verts, weights, centers, radii, tight)
+        return self._operands(per_simplex, active, dist), sperm, num
+
+    def _pass_operands(self, verts, weights, centers, radii, tight):
+        """One pass up to its work-lists, on the input device: (per_simplex
+        = (samples, centers, radii, tile_lo, tile_hi, ub2) over the padded
+        simplex rows, active, dist, sperm, num real simplices)."""
+        num = verts.shape[0]
         s_total = _round_up(max(num, 1), BS)
-        rt, nr, r2_total = _tile_geometry(weights.shape[0], dim)
+        rt, nr, r2_total = _tile_geometry(weights.shape[0], self.dim)
         verts, centers, radii = _pad_simplices(verts, centers, radii,
                                                s_total)
         ws, sperm = _prepare_sample_weights(weights, r2_total)
@@ -753,16 +740,28 @@ class CudaFloodEngine:
             )
             self.keep_admission(active)
             fence(samples)
+        return ((samples, centers, radii, tile_lo, tile_hi, ub2), active,
+                dist, sperm, num)
+
+    def _operands(self, per_simplex, active, dist):
+        """``flood_min``'s operand tuple over every block and chunk."""
         with stage("prep:worklist"):
             blk_ptr, blk_chunks = _worklist(active, dist)
             fence(blk_chunks)
-        operands = (
+        samples, centers, radii, tile_lo, tile_hi, ub2 = per_simplex
+        return (
             samples.contiguous(), self.witnesses, self.sub_lo, self.sub_hi,
             centers.contiguous(), radii.contiguous(),
             tile_lo.contiguous(), tile_hi.contiguous(), ub2.contiguous(),
             blk_ptr, blk_chunks,
         )
-        return operands, sperm, num
+
+    def _launches(self, per_simplex, active, dist):
+        """(grid, combine) of one pass: rows of ``flood_min`` operand tuples
+        (here one launch over the whole work-list), and a function from the
+        rows of their (out, stats) to (acc, ``last_stats``)."""
+        operands = self._operands(per_simplex, active, dist)
+        return [[operands]], lambda outs: outs[0][0]
 
     def keep_admission(self, active: torch.Tensor) -> None:
         """While tracing, keep the admitted (block, chunk) entries of a
@@ -774,11 +773,17 @@ class CudaFloodEngine:
                             (active & self.padded_chunks).sum())
 
     def _run_kernel(self, verts, weights, centers, radii, tight):
-        operands, sperm, num = self.prepare(verts, weights, centers, radii,
-                                            tight)
+        per_simplex, active, dist, sperm, num = self._pass_operands(
+            verts, weights, centers, radii, tight)
+        grid, combine = self._launches(per_simplex, active, dist)
         with stage("kernel"):
-            acc, self.last_stats = flood_min(*operands)
-            stagetimer.keep(pass_counter(verts), self.last_stats, column=1)
+            # every launch is enqueued before the first combine, so shards
+            # on distinct cards run at once
+            outs = [[flood_min(*ops) for ops in row] for row in grid]
+            for row in outs:
+                for _, stats in row:
+                    stagetimer.keep(pass_counter(verts), stats, column=1)
+            acc, self.last_stats = combine(outs)
             fence(acc)
         return acc, sperm, num
 

@@ -178,14 +178,51 @@ def _pad_rows(arr: torch.Tensor, total: int) -> torch.Tensor:
     return torch.cat([arr, reps], dim=0)
 
 
-class DenseFloodEngine:
-    """Axis-sorted witnesses and batched windows: the engine of
-    ``use_pallas=False`` and of float64 clouds.
+class AxisSortedEngine:
+    """What the dense engines share: witnesses sorted along their widest
+    axis ``mrd`` in chunks of ``wchunk``, and the engine interface of
+    ``CudaFloodEngine`` on top of their ``min_distances``."""
 
-    The same two-phase interface as ``CudaFloodEngine``: build once per
-    cloud, then ``order(centers)`` and ``min_distances(...)`` per
-    dimension pass.
-    """
+    def order(self, centers: torch.Tensor) -> np.ndarray:
+        """Processing order of the simplices: by center along the sorted
+        axis, so a batch's window stays narrow."""
+        key = centers[:, self.mrd].detach().cpu().numpy()
+        return np.argsort(key, kind="stable")
+
+    def _weights(self, weights) -> torch.Tensor:
+        if not isinstance(weights, torch.Tensor):
+            weights = torch.as_tensor(np.asarray(weights))
+        return weights.to(dtype=self.dtype, device=self.witnesses.device)
+
+    def _batch_size(self, num: int, batch_size: Optional[int],
+                    r_count: int) -> int:
+        """Simplices a batch: ``batch_size`` (None: all) clamped to [1,
+        num], and small enough that one chunk's (B, R, C) intermediate
+        stays within ``INTERMEDIATE_BYTES``."""
+        bsz = num if batch_size is None else int(batch_size)
+        bsz = max(1, min(bsz, num))
+        max_b = INTERMEDIATE_BYTES // max(
+            1, r_count * self.wchunk * self.witnesses.element_size())
+        return min(bsz, max(1, max_b))
+
+    def min_distances_facemax(self, verts, weights, centers, radii,
+                              batch_size: Optional[int] = 64,
+                              tight: bool = False, face_tables=None):
+        """``min_distances`` reduced to the max over each face's sample
+        columns: a tuple of (S, F_c) tensors, one per (F_c, m_c) index
+        table of ``face_tables``, or one (S,) max over all samples without
+        them."""
+        dists = self.min_distances(verts, weights, centers, radii,
+                                   batch_size, tight)
+        if face_tables is None:
+            return dists.amax(-1)
+        return tuple(dists[:, torch.as_tensor(t, device=dists.device)]
+                     .amax(-1) for t in face_tables)
+
+
+class DenseFloodEngine(AxisSortedEngine):
+    """Axis-sorted witnesses and batched windows: the engine of
+    ``use_pallas=False`` and of float64 clouds, built once per cloud."""
 
     def __init__(self, points: torch.Tensor, wchunk: int):
         self.wchunk = int(wchunk)
@@ -208,17 +245,6 @@ class DenseFloodEngine:
             pts_sorted = torch.cat([pts_sorted, pad])
         self.witnesses = pts_sorted.contiguous()
         self.witness_axis = self.witnesses[:, self.mrd].contiguous()
-
-    def order(self, centers: torch.Tensor) -> np.ndarray:
-        """Processing order of the simplices: by center along the sorted
-        axis, so a batch's window stays narrow."""
-        key = centers[:, self.mrd].detach().cpu().numpy()
-        return np.argsort(key, kind="stable")
-
-    def _weights(self, weights) -> torch.Tensor:
-        if not isinstance(weights, torch.Tensor):
-            weights = torch.as_tensor(np.asarray(weights))
-        return weights.to(dtype=self.dtype, device=self.witnesses.device)
 
     def _native_min_distances(self, verts, weights, centers, radii):
         """The native reduction, over slices of simplices whose (B, dim, R)
@@ -271,13 +297,7 @@ class DenseFloodEngine:
         num = verts.shape[0]
         if self._native is not None:
             return self._native_min_distances(verts, weights, centers, radii)
-        bsz = num if batch_size is None else int(batch_size)
-        bsz = max(1, min(bsz, num))
-        # the (B, R, C) intermediate of one chunk within the cap
-        r_count = weights.shape[0]
-        max_b = INTERMEDIATE_BYTES // max(
-            1, r_count * self.wchunk * self.witnesses.element_size())
-        bsz = min(bsz, max(1, max_b))
+        bsz = self._batch_size(num, batch_size, weights.shape[0])
         nb = -(-num // bsz)
         total = nb * bsz
         dim = verts.shape[-1]

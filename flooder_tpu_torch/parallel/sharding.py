@@ -35,11 +35,10 @@ import numpy as np
 import torch
 
 from ..ops import cuda_flood as cf
-from ..ops.flood import (INTERMEDIATE_BYTES, WITNESS_PAD, _pad_rows,
+from ..ops.flood import (WITNESS_PAD, AxisSortedEngine, _pad_rows,
                          _round_up, batch_windows, flood_min_distances)
-from ..utils import stagetimer
 from ..utils.device import DeviceLike, resolve_device
-from ..utils.stagetimer import fence, stage
+from ..utils.stagetimer import stage
 
 SIMPLEX_AXIS = "simplex"
 WITNESS_AXIS = "witness"
@@ -221,18 +220,17 @@ def _min_combine(partials: Sequence[torch.Tensor], device: torch.device):
 class MeshCudaFloodEngine(cf.CudaFloodEngine):
     """The kernel engine (K1) under a ("simplex", "witness") mesh.
 
-    The cloud is ordered once on the input device exactly as
-    ``CudaFloodEngine`` orders it (padding rows at ``WITNESS_PAD`` up to
-    ``witness_total``, ``kd_order``, chunk and sub-chunk boxes). Per
-    dimension pass, the operands and the (block, chunk) admission are
-    built once on the input device (``_prep``); chunks go to witness
-    shards and blocks to simplex shards by ``balance_chunk_assignment`` of
-    their admitted pairs, so a chunk of padding rows alone carries none;
-    each (simplex shard, witness shard) gets its gathered witnesses, rows
-    and a work-list in local chunk ids, nearest first, on its device, and
-    one K1 launch. The partial minima are combined by min and the block
-    assignment is undone on the input device; the epilogues are the
-    single-device engine's.
+    Everything of a pass but its launches is ``CudaFloodEngine``'s: the
+    cloud ordered once on the input device, the operands and the (block,
+    chunk) admission built once per pass on that device, the ``kernel``
+    stage and the epilogues. This class only splits a pass (``_launches``):
+    chunks go to witness shards and blocks to simplex shards by
+    ``balance_chunk_assignment`` of their admitted pairs, so a chunk of
+    padding rows alone carries none; each (simplex shard, witness shard)
+    gets its gathered witnesses, rows and a work-list in local chunk ids,
+    nearest first, on its device, and one K1 launch. The partial minima
+    are combined by min and the block assignment is undone on the input
+    device.
     """
 
     def __init__(self, points: torch.Tensor, mesh: Mesh):
@@ -250,21 +248,13 @@ class MeshCudaFloodEngine(cf.CudaFloodEngine):
         the sample permutation, ``num`` the real and ``s_total`` the padded
         simplex count.
         """
-        num = verts.shape[0]
-        s_total = cf._round_up(max(num, 1), cf.BS)
-        rt, nr, r2_total = cf._tile_geometry(weights.shape[0], self.dim)
-        verts, centers, radii = cf._pad_simplices(verts, centers, radii,
-                                                  s_total)
-        ws, sperm = cf._prepare_sample_weights(weights, r2_total)
-        weights_p = torch.tensor(ws, device=verts.device)
-        with stage("prep:operands"):
-            samples, tile_lo, tile_hi, ub2, active, dist = cf._prep(
-                verts - centers[:, None, :], weights_p, centers, radii,
-                self.chunk_lo, self.chunk_hi, bs=cf.BS, nr=nr, rt=rt,
-                tight=tight,
-            )
-            self.keep_admission(active)
-            fence(samples)
+        per_simplex, active, dist, sperm, num = self._pass_operands(
+            verts, weights, centers, radii, tight)
+        shards, blocks = self._split(per_simplex, active, dist)
+        return shards, blocks, sperm, num, per_simplex[0].shape[0]
+
+    def _split(self, per_simplex, active, dist):
+        """(shards, block_groups) of one pass, as ``shard_operands``."""
         with stage("prep:shards"):
             n_ss = self.mesh.shape[SIMPLEX_AXIS]
             n_ws = self.mesh.shape[WITNESS_AXIS]
@@ -274,55 +264,52 @@ class MeshCudaFloodEngine(cf.CudaFloodEngine):
             wit_chunks = self.witnesses.reshape(-1, cf.WCHUNK, dim)
             sub_lo = self.sub_lo.reshape(-1, spc, dim)
             sub_hi = self.sub_hi.reshape(-1, spc, dim)
+            dev = active.device
             shards = []
             for blocks, row in zip(block_groups, self.mesh.devices):
-                blk = torch.as_tensor(blocks, device=verts.device)
+                blk = torch.as_tensor(blocks, device=dev)
                 rows = (blk[:, None] * cf.BS
-                        + torch.arange(cf.BS, device=verts.device)).reshape(-1)
-                per_simplex = [t[rows] for t in (samples, centers, radii,
-                                                 tile_lo, tile_hi, ub2)]
+                        + torch.arange(cf.BS, device=dev)).reshape(-1)
+                smp, cen, rad, tlo, thi, u2 = [t[rows] for t in per_simplex]
                 shard_row = []
-                for chunks, dev in zip(chunk_groups, row):
-                    ch = torch.as_tensor(chunks, device=verts.device)
+                for chunks, shard_dev in zip(chunk_groups, row):
+                    ch = torch.as_tensor(chunks, device=dev)
                     blk_ptr, blk_chunks = cf._worklist(
                         active[blk][:, ch], dist[blk][:, ch])
-                    smp, cen, rad, tlo, thi, u2 = per_simplex
                     ops = (smp, wit_chunks[ch].reshape(-1, dim),
                            sub_lo[ch].reshape(-1, dim),
                            sub_hi[ch].reshape(-1, dim), cen, rad, tlo, thi,
                            u2, blk_ptr, blk_chunks)
-                    shard_row.append(tuple(t.to(dev).contiguous()
+                    shard_row.append(tuple(t.to(shard_dev).contiguous()
                                            for t in ops))
                 shards.append(shard_row)
-        return shards, block_groups, sperm, num, s_total
+        return shards, block_groups
 
-    def _run_kernel(self, verts, weights, centers, radii, tight):
-        shards, block_groups, sperm, num, s_total = self.shard_operands(
-            verts, weights, centers, radii, tight)
-        with stage("kernel"):
-            # every launch is enqueued before the first combine, so shards
-            # on distinct cards run at once
-            outs = [[cf.flood_min(*ops) for ops in row] for row in shards]
-            self.last_stats = [[s for _, s in row] for row in outs]
-            for row in self.last_stats:
-                for s in row:
-                    stagetimer.keep(cf.pass_counter(verts), s, column=1)
-            _, nr, rt, _ = shards[0][0][0].shape
+    def _launches(self, per_simplex, active, dist):
+        """One K1 launch per (simplex shard, witness shard); the combine
+        takes the min over each simplex shard's witness shards and puts its
+        blocks back in place."""
+        shards, block_groups = self._split(per_simplex, active, dist)
+        s_total, nr, rt, _ = per_simplex[0].shape
+        dev = active.device
+
+        def combine(outs):
             acc = torch.empty((s_total, nr, rt), dtype=torch.float32,
-                              device=verts.device)
+                              device=dev)
             for blocks, row, devs in zip(block_groups, outs,
                                          self.mesh.devices):
                 if len(blocks) == 0:  # more simplex shards than blocks
                     continue
                 part = _min_combine([o for o, _ in row], devs[0])
                 acc.view(-1, cf.BS, nr, rt)[
-                    torch.as_tensor(blocks, device=acc.device)
-                ] = part.view(-1, cf.BS, nr, rt).to(acc.device)
-            fence(acc)
-        return acc, sperm, num
+                    torch.as_tensor(blocks, device=dev)
+                ] = part.view(-1, cf.BS, nr, rt).to(dev)
+            return acc, [[s for _, s in row] for row in outs]
+
+        return shards, combine
 
 
-class MeshFloodEngine:
+class MeshFloodEngine(AxisSortedEngine):
     """The dense engine under a mesh (``use_pallas=False`` and float64).
 
     Witnesses are sorted along the widest axis, padded with
@@ -345,26 +332,16 @@ class MeshFloodEngine:
             pts_sorted = torch.cat([pts_sorted, pad])
         self.witnesses = pts_sorted.contiguous()
 
-    def order(self, centers: torch.Tensor) -> np.ndarray:
-        key = centers[:, self.mrd].detach().cpu().numpy()
-        return np.argsort(key, kind="stable")
-
     def min_distances(self, verts, weights, centers, radii,
                       batch_size: Optional[int] = 64, tight: bool = False):
         """(S, R) min distances, rows in the input order (``tight`` is the
         kernel engine's pruning hint and is ignored)."""
         del tight
-        if not isinstance(weights, torch.Tensor):
-            weights = torch.as_tensor(np.asarray(weights))
-        weights = weights.to(dtype=self.dtype, device=verts.device)
+        weights = self._weights(weights)
         num, k, dim = verts.shape
-        n_ss = self.mesh.shape[SIMPLEX_AXIS]
-        bsz = max(1, min(int(batch_size), num))
         r_count = weights.shape[0]
-        max_b = INTERMEDIATE_BYTES // max(
-            1, r_count * self.wchunk * self.witnesses.element_size())
-        bsz = min(bsz, max(1, max_b))
-        nb = _round_up(-(-num // bsz), n_ss)
+        bsz = self._batch_size(num, batch_size, r_count)
+        nb = _round_up(-(-num // bsz), self.mesh.shape[SIMPLEX_AXIS])
         total = nb * bsz
         out = sharded_flood_min_distances(
             _pad_rows(verts, total).reshape(nb, bsz, k, dim), weights,

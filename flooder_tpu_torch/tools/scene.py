@@ -2,9 +2,10 @@
 
 Counterpart of ``tools/pricing_common.py`` ``build_scene``, built from the
 port's own pieces only: the generators, FPS landmarks from index 0, the
-Delaunay top simplices, their bounding balls in the engine's visit order,
-the grid with 30 points per edge and ``CudaFloodEngine.prepare`` with the
-nearest-vertex bound on. The operands are the ones ``flood_complex`` hands
+Delaunay top simplices, their bounding balls in the engine's visit order
+(``core.pass_inputs``, as ``flood_complex`` makes them), the grid with 30
+points per edge and ``CudaFloodEngine.prepare`` with the nearest-vertex
+bound on. The operands are the ones ``flood_complex`` hands
 kernel K1 in its top-dimension pass.
 """
 
@@ -15,9 +16,8 @@ from types import SimpleNamespace
 import numpy as np
 import torch
 
-from ..core import _grid_host, generate_landmarks
+from ..core import _grid_host, generate_landmarks, pass_inputs
 from ..ops.cuda_flood import BS, CudaFloodEngine
-from ..ops.flood import simplex_bounding_balls
 from ..synthetic_data_generators import (
     generate_figure_eight_points_2d,
     generate_swiss_cheese_points,
@@ -65,10 +65,7 @@ def build_scene(points: int, landmarks: int, *, cloud: str = "cheese3d",
         lms.cpu().numpy().astype(np.float64)
     ).create_simplex_tree()
     top = stree._verts[min(dim, len(stree._verts) - 1)]
-    sim_verts = lms[torch.as_tensor(top, device=dev).long()]
-    centers, radii = simplex_bounding_balls(sim_verts)
-    order = torch.as_tensor(engine.order(centers), device=dev)
-    sim_verts, centers, radii = sim_verts[order], centers[order], radii[order]
+    sim_verts, centers, radii, _ = pass_inputs(lms, top, engine)
     weights = _grid_host(POINTS_PER_EDGE, dim)[0]
     operands, sperm, num = engine.prepare(sim_verts, weights, centers, radii,
                                           tight=True)

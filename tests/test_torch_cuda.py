@@ -12,6 +12,7 @@ import pytest
 import torch
 
 import flooder_tpu_torch as ft
+from flooder_tpu_torch.core import _grid_host, pass_inputs
 from flooder_tpu_torch.ops import cuda_flood, cuda_flood_stats, cuda_fps
 from flooder_tpu_torch.ops.fps import farthest_point_sampling
 
@@ -131,19 +132,13 @@ def _dim3_operands(device, n=20000, n_lms=100, tight=True, num_rand=None,
     stree = ft.topology.DelaunayComplex(
         L.cpu().numpy().astype(np.float64)
     ).create_simplex_tree()
-    tets = torch.as_tensor(stree._verts[3], device=device).long()
-    verts = L[tets]
-    centers, radii = ft.ops.flood.simplex_bounding_balls(verts)
-    radii = radii * radius_scale
-    order = torch.as_tensor(eng.order(centers), device=device)
+    verts, centers, radii, _ = pass_inputs(L, stree._verts[3], eng)
     if num_rand is None:
-        from flooder_tpu_torch.core import _grid_host
-
         weights = _grid_host(10, 3)[0]
     else:
         np.random.seed(0)
         weights = ft.generate_uniform_weights(num_rand, 3, device="cpu")
-    return eng.prepare(verts[order], weights, centers[order], radii[order],
+    return eng.prepare(verts, weights, centers, radii * radius_scale,
                        tight)[0]
 
 
@@ -512,10 +507,9 @@ def test_flood_kernel_few_samples_past_8_coordinates(cuda_device, dim,
     9-16, flood_min_few_slabs past 16: tiles of 128 samples, a warp a tile;
     one to three tiles a simplex) in one few-sample launch: against the
     plain version (the bar of assert_within_wide_bar, inf in place, +inf
-    from 38 coordinates on, every count equal), against flood_min_wide on
-    the same tiles (``flood_min_tiled``: bit for bit, the same counts) and
-    against K3's runtime-width instance (bit for bit, its computed tiles
-    equal to K1's units)."""
+    from 38 coordinates on, every count equal) and against K3's
+    runtime-width instance (bit for bit, its computed tiles equal to K1's
+    units)."""
     ops = k3_case_operands(cuda_device, dim=dim, r_count=r_count)
     assert ops[0].shape[1:3] == (-(-r_count // cuda_flood.FEW_RT),
                                  cuda_flood.FEW_RT)
@@ -536,12 +530,6 @@ def test_flood_kernel_few_samples_past_8_coordinates(cuda_device, dim,
     assert bool((masked & torch.isfinite(out_p)).any()) == (dim < 38)
     units = cuda_flood.kernel_operations(stats_k)[0]
     assert units > 0
-    before = cuda_flood.FEW_LAUNCHES
-    out_t, stats_t = cuda_flood.flood_min_tiled(*ops)
-    torch.cuda.synchronize()
-    assert cuda_flood.FEW_LAUNCHES == before
-    assert torch.equal(out_t, out_k)
-    assert torch.equal(stats_t, stats_k)
     out_3, stats_3 = cuda_flood_stats.flood_min_stats(*ops)
     assert torch.equal(out_3, out_k)
     assert stats_3[:, cuda_flood_stats.COL_TILES].sum().item() == units

@@ -31,8 +31,7 @@ from flooder_tpu_torch.parallel.sharding import (
     _shard_groups,
     balance_chunk_assignment,
 )
-from flooder_tpu_torch.core import _grid_host
-from flooder_tpu_torch.ops.flood import simplex_bounding_balls
+from flooder_tpu_torch.core import _grid_host, pass_inputs
 from flooder_tpu_torch.topology import DelaunayComplex
 
 PPE = 6
@@ -54,11 +53,8 @@ def top_pass_inputs(engine, landmarks, ppe):
     L = torch.as_tensor(landmarks)
     dim = L.shape[1]
     stree = DelaunayComplex(L.numpy().astype(np.float64)).create_simplex_tree()
-    verts = L[torch.as_tensor(stree._verts[dim]).long()]
-    centers, radii = simplex_bounding_balls(verts)
-    order = torch.as_tensor(engine.order(centers))
-    weights = _grid_host(ppe, dim)[0]
-    return verts[order], weights, centers[order], radii[order]
+    verts, centers, radii, _ = pass_inputs(L, stree._verts[dim], engine)
+    return verts, _grid_host(ppe, dim)[0], centers, radii
 
 
 def _assert_close(ref: dict, got: dict, tol=2e-6):
@@ -296,6 +292,92 @@ def test_dense_mesh_equals_single_device_torch_reduction(cloud, dtype,
     want = single.min_distances(verts, weights, centers, radii, 64)
     got = mesh.min_distances(verts, weights, centers, radii, 64)
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+ENGINES = ("dense", "kernel", "dense-mesh", "kernel-mesh")
+
+
+def _engine(kind, X):
+    """One of the four flood engines on cloud ``X``; the meshes are 2 x 2
+    on the CPU."""
+    mesh = make_mesh(["cpu"] * 4, simplex_parallel=2)
+    if kind == "dense":
+        return DenseFloodEngine(X, 128)
+    if kind == "kernel":
+        return cuda_flood.CudaFloodEngine(X)
+    if kind == "dense-mesh":
+        return MeshFloodEngine(X, 128, mesh)
+    return MeshCudaFloodEngine(X, mesh)
+
+
+@pytest.fixture(scope="module")
+def cheese():
+    """A 2,000-point swiss cheese, 40 FPS landmarks from index 0, and the
+    one-card kernel engine's dicts in grid and random mode."""
+    X = ft.generate_swiss_cheese_points(2000, k=6, seed=3, device="cpu")[0]
+    L = ft.generate_landmarks(X, 40, start_idx=0, device="cpu")
+    want = {"grid": ft.flood_complex(X, L, points_per_edge=PPE,
+                                     device="cpu")}
+    np.random.seed(9)
+    want["random"] = ft.flood_complex(X, L, num_rand=60, points_per_edge=None,
+                                      device="cpu")
+    return X, L, want
+
+
+@pytest.mark.parametrize("mode", ["grid", "random"])
+@pytest.mark.parametrize("kind", ENGINES)
+def test_min_distances_facemax_is_min_distances_then_face_maxima(
+        cheese, kind, mode):
+    """Every engine's ``min_distances_facemax``, the one call of a pass in
+    flood_complex, equals its ``min_distances`` followed by the max over
+    each face's sample columns (grid mode) or over all samples (random
+    mode), bit for bit."""
+    X, L, _ = cheese
+    engine = _engine(kind, X)
+    d = 3 if mode == "grid" else 2
+    stree = DelaunayComplex(L.double().numpy()).create_simplex_tree()
+    verts, centers, radii, _ = pass_inputs(L, stree._verts[d], engine)
+    if mode == "grid":
+        weights, _, face_tables = _grid_host(PPE, d)
+    else:
+        np.random.seed(9)
+        weights = ft.generate_uniform_weights(60, d, device="cpu")
+        face_tables = None
+    dists = engine.min_distances(verts, weights, centers, radii, tight=True)
+    got = engine.min_distances_facemax(verts, weights, centers, radii,
+                                       tight=True, face_tables=face_tables)
+    assert bool(torch.isfinite(dists).any())
+    if face_tables is None:
+        assert torch.equal(got, dists.amax(-1))
+    else:
+        assert len(got) == len(face_tables)
+        for g, t in zip(got, face_tables):
+            assert torch.equal(g, dists[:, torch.as_tensor(t)].amax(-1))
+
+
+@pytest.mark.parametrize("mode", ["grid", "random"])
+@pytest.mark.parametrize("kind", ["dense", "dense-mesh", "kernel-mesh"])
+def test_flood_complex_gives_the_kernel_engines_dict(cheese, monkeypatch,
+                                                      kind, mode):
+    """flood_complex gives the one-card kernel engine's dict bit for bit
+    with every other float32 engine; the dense engine runs its torch
+    reduction, as on the card (the native one is an ulp away)."""
+    from flooder_tpu_torch.ops import flood
+
+    X, L, want = cheese
+    monkeypatch.setattr(flood, "NATIVE_MAX_DIM", 0)
+    kw = dict(use_pallas=False) if kind.startswith("dense") else {}
+    if kind.endswith("mesh"):
+        kw["mesh"] = make_mesh(["cpu"] * 4, simplex_parallel=2)
+    else:
+        kw["device"] = "cpu"
+    if mode == "grid":
+        got = ft.flood_complex(X.clone(), L, points_per_edge=PPE, **kw)
+    else:
+        np.random.seed(9)
+        got = ft.flood_complex(X.clone(), L, num_rand=60,
+                               points_per_edge=None, **kw)
+    _assert_equal(got, want[mode])
 
 
 def test_mesh_error_contracts(cloud):
