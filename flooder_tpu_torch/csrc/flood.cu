@@ -41,6 +41,22 @@
 //     an ulp, so a gap within an ulp of pm can be admitted on one side and
 //     skipped on the other; on every input checked (chip_smoke.py,
 //     tests/test_torch_cuda.py) the admitted units are the plain version's.
+// The seed pass: each (simplex, tile) walks its block's list twice, both
+// times nearest first by the block's centres. The first pass admits the
+// sub-chunks that pass the ball test and whose box meets the tile's (gap
+// 0), so pm falls to the witnesses on the tile before the rest of the list
+// is tested; the second admits those at a gap above 0 within min(pm,
+// ub2). A walk in one pass admits every gap-0 sub-chunk too, and where the
+// second pass reaches a sub-chunk it has seen a superset of what that walk
+// had, so its pm is no larger: the two passes admit a subset of the one
+// pass's units, with the same minima. On a 10M-point cheese, grid and
+// random passes alike, it computes 0.43-0.48 of the one pass's in-ball
+// pairs, and K1's time falls with them (an H100; PERF.md). Each pass folds
+// its gap condition into the walk's ballot (pass_holds), so `todo` and the
+// one-ahead prefetch hold only the pass's candidates; a tile whose box
+// meets no sub-chunk walks as in one pass, at the cost of one more scan of
+// the list's boxes. A unit's pass is its gap: 0 in the seed pass alone,
+// and stats' third column counts its pairs.
 //
 // What bounds it: fp32 instruction issue in the inner loop. Each (sample,
 // witness) pair costs 7 instructions (3 sub, 1 mul, 2 FMA, 1 min; see
@@ -66,8 +82,9 @@
 // pallas_flood.py:51-56); the ball, box and tile tests explicitly rounded
 // as in the plain version. DIM * (3e18)^2, at most 7.2e37 at DIM 8, stays
 // finite in fp32 (flood_common.cuh), and outputs >= 1e30 mean "no witness
-// in the ball". The caller gets per-tile counts of admitted units and of
-// in-ball pairs, from which the bound is computed.
+// in the ball". The caller gets per-tile counts, from which the bound is
+// computed: admitted units, in-ball pairs, and the seed pass's in-ball
+// pairs.
 //
 // Template instances for 1-8 coordinates. At 5-8 a staged witness is two
 // float4 (the pair loop reads it with two LDS.128). Tiles of 256-512
@@ -140,6 +157,15 @@ using flood::SUB;
 constexpr int MAX_RT = 512;  // samples per tile, at most
 constexpr int SPT = 4;       // samples per thread
 
+// Whether a sub-chunk that passed the ball test, at squared gap g2 to the
+// tile's box, is admitted by the walk's pass: a gap of 0 by the seed pass,
+// a gap above 0 within min(pm, ub2) (skip 2) by the second. Between the
+// ballot and its turn pm may fall, so a candidate is tested again then.
+__device__ __forceinline__ bool pass_holds(float g2, bool seed, float pm,
+                                           float ub) {
+  return (g2 == 0.f) == seed && g2 <= fminf(pm, ub);
+}
+
 // Few samples a simplex: tiles of FEW_RT samples, one warp a (simplex,
 // tile), FEW_WARPS independent warps a CTA (see the note at the top).
 constexpr int FEW_RT = 32 * SPT;
@@ -160,7 +186,7 @@ __global__ void __launch_bounds__(32 * FEW_WARPS) flood_min_few(
     const int *__restrict__ blk_chunks,   // chunk ids, nearest first
     const int *__restrict__ cta_order,    // (n_blk,) blocks in launch order
     float *__restrict__ out,              // (S, NR, FEW_RT) min d^2
-    unsigned long long *__restrict__ stats,  // (n_blk * NR, 2), zeroed
+    unsigned long long *__restrict__ stats,  // (n_blk * NR, 3), zeroed
     int n_items, int nr, int bs, int spc) {
   // each warp's own raw segment (cp.async target, read back only by the
   // lane that fetched it) and its compacted segment
@@ -200,27 +226,38 @@ __global__ void __launch_bounds__(32 * FEW_WARPS) flood_min_few(
     acc[k] = CUDART_INF_F;
   }
 
-  // The walk, 32 list positions at a time: lane l takes position base + l
-  // (sub-chunk n % spc of the list's chunk n / spc), tests it against the
-  // ball (skip 1) and, where it passes, computes its gap to the tile's box
-  // for skip 2. `todo` holds the lanes whose sub-chunk passed and is ahead.
+  // The walk, in two passes over the list (the seed pass, then the rest),
+  // 32 list positions at a time: lane l takes position base + l (sub-chunk
+  // n % spc of the list's chunk n / spc) and votes for it where it passes
+  // the ball (skip 1) and its gap to the tile's box belongs to the pass
+  // (see the note at the top). `todo` holds the lanes that voted and are
+  // ahead.
   const int c0 = blk_ptr[b];
   const int npos = (blk_ptr[b + 1] - c0) * spc;
   int base = -32, lsub = 0;
   float lgap = 0.f;
   unsigned todo = 0;
+  bool seed = true;         // the walk is in its seed pass
+  float pm = CUDART_INF_F;  // the tile's max of its running mins
   auto next_ball = [&](float &g2) -> int {
     while (todo == 0) {
       base += 32;
-      if (base >= npos) return -1;
+      if (base >= npos) {
+        if (!seed) return -1;
+        seed = false;
+        base = -32;
+        continue;
+      }
       const int n = base + lane;
-      bool pass = false;
+      bool vote = false;
       if (n < npos) {
         lsub = blk_chunks[c0 + n / spc] * spc + n % spc;
-        pass = near2<DIM>(sub_lo, sub_hi, lsub, c) <= r2;  // skip 1
-        if (pass) lgap = gap2<DIM>(sub_lo, sub_hi, lsub, c, tlo, thi);
+        if (near2<DIM>(sub_lo, sub_hi, lsub, c) <= r2) {  // skip 1
+          lgap = gap2<DIM>(sub_lo, sub_hi, lsub, c, tlo, thi);
+          vote = pass_holds(lgap, seed, pm, ub);
+        }
       }
-      todo = __ballot_sync(FULL, pass);
+      todo = __ballot_sync(FULL, vote);
     }
     const int l = __ffs(todo) - 1;
     todo &= todo - 1;
@@ -228,8 +265,7 @@ __global__ void __launch_bounds__(32 * FEW_WARPS) flood_min_few(
     return __shfl_sync(FULL, lsub, l);
   };
 
-  unsigned long long units = 0, inball = 0;
-  float pm = CUDART_INF_F;  // the tile's max of its running mins
+  unsigned long long units = 0, inball = 0, seeded = 0;
   float cgap = 0.f;         // cand's gap to the tile's box
   bool fetched = false;     // cand's first segment is on its way into raw
   int cand = next_ball(cgap);
@@ -259,6 +295,7 @@ __global__ void __launch_bounds__(32 * FEW_WARPS) flood_min_few(
     if (total == 0) fold_masked<DIM, SPT>(x, acc);
     units += 1;
     inball += total;
+    if (cgap == 0.f) seeded += total;  // a unit of the seed pass
     pm = acc[0];
 #pragma unroll
     for (int k = 1; k < SPT; ++k) pm = fmaxf(pm, acc[k]);
@@ -273,8 +310,9 @@ __global__ void __launch_bounds__(32 * FEW_WARPS) flood_min_few(
   for (int k = 0; k < SPT; ++k) out[tile * FEW_RT + lane + 32 * k] = acc[k];
   if (lane == 0) {
     const size_t row = (size_t)b * nr + r;
-    atomicAdd(stats + 2 * row, units);
-    atomicAdd(stats + 2 * row + 1, inball * FEW_RT);
+    atomicAdd(stats + 3 * row, units);
+    atomicAdd(stats + 3 * row + 1, inball * FEW_RT);
+    atomicAdd(stats + 3 * row + 2, seeded * FEW_RT);
   }
 }
 
@@ -290,7 +328,7 @@ cudaError_t launch_few(const float *samples, const float *witnesses,
   const long long items = (long long)n_blk * bs * nr;
   if (items == 0) return cudaSuccess;
   cudaError_t e = cudaMemsetAsync(
-      stats, 0, 2 * sizeof(long long) * (size_t)n_blk * nr, stream);
+      stats, 0, 3 * sizeof(long long) * (size_t)n_blk * nr, stream);
   if (e != cudaSuccess) return e;
   const long long ctas = (items + FEW_WARPS - 1) / FEW_WARPS;
   flood_min_few<DIM><<<(unsigned)ctas, 32 * FEW_WARPS, 0, stream>>>(
@@ -321,7 +359,7 @@ __global__ void __launch_bounds__(WIDE_THREADS, 2) flood_min_wide(
     const int *__restrict__ blk_chunks,   // chunk ids, nearest first
     const int *__restrict__ cta_order,    // (n_blk,) block of each CTA row
     float *__restrict__ out,              // (S, NR, RT) min d^2
-    long long *__restrict__ stats,        // (n_blk * NR, 2)
+    long long *__restrict__ stats,        // (n_blk * NR, 3)
     int nr, int rt, int bs, int spc, int dim) {
   // xs: the tile's samples (or a slab of them); ws: the staged unit (or a
   // slab of a step); then raw, the next candidate's rows (one slab), or
@@ -343,7 +381,7 @@ __global__ void __launch_bounds__(WIDE_THREADS, 2) flood_min_wide(
   const int xo = warp * WIDE_WARP_SAMPLES + 4 * (lane / WIDE_WL);
   const int wo = 4 * (lane % WIDE_WL);
   const int c0 = blk_ptr[b], c1 = blk_ptr[b + 1];
-  long long units = 0, inball = 0;
+  long long units = 0, inball = 0, seeded = 0;
 
   for (int si = 0; si < bs; ++si) {
     const int s = b * bs + si;
@@ -362,27 +400,36 @@ __global__ void __launch_bounds__(WIDE_THREADS, 2) flood_min_wide(
     for (int k = 0; k < WIDE_TM; ++k) mn[k] = CUDART_INF_F;
     float pm = CUDART_INF_F;  // the tile's max of its running mins
 
-    // The walk, 32 list positions at a time: lane l of every warp takes
-    // position base + l (sub-chunk n % spc of the list's chunk n / spc),
-    // tests it against the ball (skip 1) and, where it passes, computes its
-    // gap to the tile's box for skip 2, whose bound changes with every unit.
-    // `todo` holds the lanes whose sub-chunk passed and is still ahead.
+    // The walk, in two passes over the list (the seed pass, then the
+    // rest), 32 list positions at a time: lane l of every warp takes
+    // position base + l (sub-chunk n % spc of the list's chunk n / spc) and
+    // votes for it where it passes the ball (skip 1) and its gap to the
+    // tile's box belongs to the pass, whose bound changes with every unit.
+    // `todo` holds the lanes that voted and are still ahead.
     const int npos = (c1 - c0) * spc;
     int base = -32, lsub = 0;
     float lgap = 0.f;
     unsigned todo = 0;
+    bool seed = true;  // the walk is in its seed pass
     auto next_ball = [&](float &g2) -> int {
       while (todo == 0) {
         base += 32;
-        if (base >= npos) return -1;
+        if (base >= npos) {
+          if (!seed) return -1;
+          seed = false;
+          base = -32;
+          continue;
+        }
         const int n = base + lane;
-        bool pass = false;
+        bool vote = false;
         if (n < npos) {
           lsub = blk_chunks[c0 + n / spc] * spc + n % spc;
-          pass = near2_wide(sub_lo, sub_hi, lsub, c, dim) <= r2;  // skip 1
-          if (pass) lgap = gap2_wide(sub_lo, sub_hi, lsub, c, tlo, thi, dim);
+          if (near2_wide(sub_lo, sub_hi, lsub, c, dim) <= r2) {  // skip 1
+            lgap = gap2_wide(sub_lo, sub_hi, lsub, c, tlo, thi, dim);
+            vote = pass_holds(lgap, seed, pm, ub);
+          }
         }
-        todo = __ballot_sync(FULL, pass);
+        todo = __ballot_sync(FULL, vote);
       }
       const int l = __ffs(todo) - 1;
       todo &= todo - 1;
@@ -417,6 +464,7 @@ __global__ void __launch_bounds__(WIDE_THREADS, 2) flood_min_wide(
                          one, xo, wo);
       units += 1;
       inball += m;
+      if (cgap == 0.f) seeded += m;  // a unit of the seed pass
       wide_lane_min(mn);
       const float wm = wide_warp_max(mn);
       if (lane == 0) wmax[warp] = wm;
@@ -437,8 +485,9 @@ __global__ void __launch_bounds__(WIDE_THREADS, 2) flood_min_wide(
   cp_async_wait_all();  // a rejected candidate's rows may be in flight
   if (tid == 0) {
     const size_t row = (size_t)b * nr + r;
-    stats[2 * row] = units;
-    stats[2 * row + 1] = inball * rt;
+    stats[3 * row] = units;
+    stats[3 * row + 1] = inball * rt;
+    stats[3 * row + 2] = seeded * rt;
   }
 }
 
@@ -603,7 +652,7 @@ __device__ __forceinline__ int few_wide_own(int lane) {
       const int *__restrict__ blk_chunks,  /* chunk ids, nearest first */   \
       const int *__restrict__ cta_order,   /* (n_blk,) launch order */      \
       float *__restrict__ out,             /* (S, NR, FEW_RT) min d^2 */    \
-      unsigned long long *__restrict__ stats, /* (n_blk * NR, 2), zeroed */ \
+      unsigned long long *__restrict__ stats, /* (n_blk * NR, 3), zeroed */ \
       int n_items, int nr, int bs, int spc, int dim
 #define FEW_WIDE_ARGS                                                       \
   samples_t, witnesses, sub_lo, sub_hi, centers, radii, tile_lo, tile_hi,   \
@@ -655,27 +704,37 @@ __device__ __forceinline__ void few_wide_item(FEW_WIDE_PARAMS) {
   float mn0[2] = {CUDART_INF_F, CUDART_INF_F};
   float mn1[2] = {CUDART_INF_F, CUDART_INF_F};
 
-  // The walk, 32 list positions at a time: lane l takes position base + l
-  // (sub-chunk n % spc of the list's chunk n / spc), tests it against the
-  // ball (skip 1) and, where it passes, computes its gap to the tile's box
-  // for skip 2. `todo` holds the lanes whose sub-chunk passed and is ahead.
+  // The walk, in two passes over the list (the seed pass, then the rest),
+  // 32 list positions at a time: lane l takes position base + l (sub-chunk
+  // n % spc of the list's chunk n / spc) and votes for it where it passes
+  // the ball (skip 1) and its gap to the tile's box belongs to the pass.
+  // `todo` holds the lanes that voted and are ahead.
   const int c0 = blk_ptr[b];
   const int npos = (blk_ptr[b + 1] - c0) * spc;
   int base = -32, lsub = 0;
   float lgap = 0.f;
   unsigned todo = 0;
+  bool seed = true;         // the walk is in its seed pass
+  float pm = CUDART_INF_F;  // the tile's max of its running mins
   auto next_ball = [&](float &g2) -> int {
     while (todo == 0) {
       base += 32;
-      if (base >= npos) return -1;
+      if (base >= npos) {
+        if (!seed) return -1;
+        seed = false;
+        base = -32;
+        continue;
+      }
       const int n = base + lane;
-      bool pass = false;
+      bool vote = false;
       if (n < npos) {
         lsub = blk_chunks[c0 + n / spc] * spc + n % spc;
-        pass = near2_wide(sub_lo, sub_hi, lsub, c, dim) <= r2;  // skip 1
-        if (pass) lgap = gap2_wide(sub_lo, sub_hi, lsub, c, tlo, thi, dim);
+        if (near2_wide(sub_lo, sub_hi, lsub, c, dim) <= r2) {  // skip 1
+          lgap = gap2_wide(sub_lo, sub_hi, lsub, c, tlo, thi, dim);
+          vote = pass_holds(lgap, seed, pm, ub);
+        }
       }
-      todo = __ballot_sync(FULL, pass);
+      todo = __ballot_sync(FULL, vote);
     }
     const int l = __ffs(todo) - 1;
     todo &= todo - 1;
@@ -696,8 +755,8 @@ __device__ __forceinline__ void few_wide_item(FEW_WIDE_PARAMS) {
     }
   };
 
-  unsigned units = 0, inball = 0;  // one item's: in-ball witnesses < 2^32
-  float pm = CUDART_INF_F;  // the tile's max of its running mins
+  // one item's: in-ball witnesses < 2^32
+  unsigned units = 0, inball = 0, seeded = 0;
   float cgap = 0.f;         // cand's gap to the tile's box
   bool fetched = false;     // cand's first segment is on its way into raw
   int cand = next_ball(cgap);
@@ -792,6 +851,7 @@ __device__ __forceinline__ void few_wide_item(FEW_WIDE_PARAMS) {
     }
     units += 1;
     inball += m;
+    if (cgap == 0.f) seeded += m;  // a unit of the seed pass
     pm = fmaxf(fmaxf(mn0[0], mn0[1]), fmaxf(mn1[0], mn1[1]));
     for (int off = 16; off > 0; off >>= 1)
       pm = fmaxf(pm, __shfl_xor_sync(FULL, pm, off));
@@ -805,8 +865,9 @@ __device__ __forceinline__ void few_wide_item(FEW_WIDE_PARAMS) {
   *reinterpret_cast<float2 *>(o + FEW_HALF) = make_float2(mn1[0], mn1[1]);
   if (lane == 0) {
     const size_t row = (size_t)b * nr + r;
-    atomicAdd(stats + 2 * row, (unsigned long long)units);
-    atomicAdd(stats + 2 * row + 1, (unsigned long long)inball * FEW_RT);
+    atomicAdd(stats + 3 * row, (unsigned long long)units);
+    atomicAdd(stats + 3 * row + 1, (unsigned long long)inball * FEW_RT);
+    atomicAdd(stats + 3 * row + 2, (unsigned long long)seeded * FEW_RT);
   }
 }
 
@@ -834,7 +895,7 @@ cudaError_t launch_few_wide(const float *samples_t, const float *witnesses,
   const long long items = (long long)n_blk * bs * nr;
   if (items == 0) return cudaSuccess;
   cudaError_t e = cudaMemsetAsync(
-      stats, 0, 2 * sizeof(long long) * (size_t)n_blk * nr, stream);
+      stats, 0, 3 * sizeof(long long) * (size_t)n_blk * nr, stream);
   const size_t smem = few_wide_smem_bytes(dim);
   const auto kernel =
       dim <= flood::WIDE_KS ? flood_min_few_wide : flood_min_few_slabs;
@@ -890,7 +951,8 @@ long long flood_wide_smem_bytes(int dim) {
 // dim, RT) (its shared memory, flood_wide_smem_bytes, is at most 98,304
 // bytes at 16 coordinates and 35,840 at any width past 16: no width cap);
 // `cta_order` a permutation of the blocks (CTA row i runs block
-// cta_order[i]); `witnesses` 16-byte aligned. *launched is set to the
+// cta_order[i]); `stats` (n_blk * NR, 3), a row a (block, tile), written
+// whole; `witnesses` 16-byte aligned. *launched is set to the
 // number of kernel launches enqueued without error (0 when there is no
 // CTA). Returns 0 or the CUDA launch error.
 int flood_min_launch(const float *samples, const float *witnesses,
@@ -917,9 +979,9 @@ int flood_min_launch(const float *samples, const float *witnesses,
 // tile): flood_min_few<DIM> at 1-8 coordinates, flood_min_few_wide past 8
 // (samples coordinate-major, as flood_min_wide reads them; its shared
 // memory, flood_few_wide_smem_bytes, is at most 57,344 bytes, at 16
-// coordinates, and 28,672 at any width past 16: no width cap). `stats` is
-// zeroed on the stream before the launch adds each tile's counts to its
-// row.
+// coordinates, and 28,672 at any width past 16: no width cap). `stats`,
+// (n_blk * nr, 3), is zeroed on the stream before the launch adds each
+// tile's counts to its row.
 int flood_min_few_launch(const float *samples, const float *witnesses,
                          const float *sub_lo, const float *sub_hi,
                          const float *centers, const float *radii,

@@ -1,8 +1,9 @@
 // What the flood kernels K1 (flood.cu) and K3 (flood_stats.cu) share: the
 // arithmetic of every test and distance, and the staging of a sub-chunk.
 // Both must compute every (sample, witness) distance the same way, so that
-// K3's output equals K1's bit for bit and its computed tiles equal K1's
-// admitted units; keeping the forms here makes that hold by construction.
+// K3's output equals K1's bit for bit and K1's admitted units stay within
+// K3's computed tiles; keeping the forms here makes that hold by
+// construction.
 //
 // Arithmetic. The sources are built with -fmad=false: every multiply and
 // add is rounded on its own, as in the plain PyTorch versions, unless an

@@ -10,8 +10,9 @@
 //   col 1  admitted (simplex, sub-chunk) units,
 //   col 2  computed (simplex, tile, sub-chunk) sample tiles.
 //
-// Three tests, on the running mins K1 also computes (so K3 decides as K1
-// does; against the plain version see flood.cu's note on the tile test):
+// Three tests, on the running mins K1 also computes (so K3 decides as K1's
+// walk in one pass; against the plain version see flood.cu's note on the
+// tile test):
 //  1. ball: the sub-chunk's box must meet the simplex's ball;
 //  2. unit: the squared gap between the sub-chunk's box and the simplex's
 //     sample box must not exceed the simplex's bound, the max of its running
@@ -19,8 +20,12 @@
 //  3. tile: the squared gap to the tile's sample box must not exceed
 //     min(tile's current max running min, ub2), K1's own tile test.
 // Since sample-box gap <= tile gap <= tile max <= simplex max at the start
-// of the pair, every tile K1 computes passes test 2: K3 computes the same
-// tiles as K1 and its output equals K1's bit for bit.
+// of the pair, every tile a walk in one pass computes passes test 2: K3
+// computes that walk's tiles, the counterpart of the TPU tool's. K1 walks
+// each list twice, its seed pass first (flood.cu), and admits a subset of
+// them: K3's output equals K1's bit for bit, and K1's admitted units and
+// pairs are no more than K3's computed tiles and their pairs, block by
+// block.
 //
 // Design: one CTA per simplex, because test 2 needs a max over all of a
 // simplex's samples and K1's (block, tile) CTAs never see a whole simplex.
@@ -63,13 +68,13 @@
 //    slower at 100k x 300 than tiles of 512 (PERF.md).
 //
 // What bounds it: fp32 instruction issue, as K1: 7 per (sample, in-ball
-// witness) pair of the computed tiles, the same pairs K1 computes, in the
-// same inner loop (SASS). Bytes are far below: a computed tile's samples
-// are read from L2, the witnesses once per admitted unit. What stays
-// between the kernel and that floor is the walk of the list, the per-unit
-// tests, staging, barrier waits and the tail of the last wave: without the
-// launch order the longest simplices finish last and the kernel takes
-// about 1.2x as long. Measured times beside the floor: PERF.md.
+// witness) pair of the computed tiles, the pairs of a walk in one pass (no
+// fewer than K1's), in the same inner loop (SASS). Bytes are far below: a
+// computed tile's samples are read from L2, the witnesses once per admitted
+// unit. What stays between the kernel and that floor is the walk of the
+// list, the per-unit tests, staging, barrier waits and the tail of the last
+// wave: without the launch order the longest simplices finish last and the
+// kernel takes about 1.2x as long. Measured times beside the floor: PERF.md.
 //
 // 9 and more coordinates: one runtime-width instance, flood_stats_wide,
 // with K1's wide forms (flood_common.cuh): the same tests, counters and

@@ -36,9 +36,15 @@ admits a sub-chunk for a patch only where its box comes within
 ``min(pm, ub2)`` of the patch's, the same lossless test as on a tile of
 512 samples, one patch at a time. It leaves out the pairs that could not
 lower a minimum of that patch, about half of a 512-sample tile's on a
-cheese cloud of 10M points, with the same minima. At 1-8 coordinates no
-other tile is made, and ``flood_min`` refuses one. Past 8 coordinates the
-tiles of more than 384 samples hold ``RT`` = 512 (``flood_min_wide``).
+cheese cloud of 10M points, with the same minima. Every instance walks a
+tile's list twice, nearest first both times: a seed pass admits the
+sub-chunks whose box meets the tile's (gap 0), so ``pm`` falls to the
+witnesses on the tile before skip 2 tests the rest in the second pass. The
+two passes admit a subset of the units of one pass, with the same minima
+(``csrc/flood.cu``); K1's ``stats`` count the seed pass's in-ball pairs in
+a third column. At 1-8 coordinates no other tile is made, and
+``flood_min`` refuses one. Past 8 coordinates the tiles of more than 384
+samples hold ``RT`` = 512 (``flood_min_wide``).
 
 The kernel takes float32 clouds of any width, as the Pallas engine does:
 template instances for 1-8 coordinates and runtime-width instances past 8,
@@ -400,61 +406,87 @@ def _worklist(active: torch.Tensor, dist: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
+def _walk_tests(sub_lo, sub_hi, subs, c, r2, tlo, thi):
+    """K1's two tests on sub-chunks ``subs`` (P,) of one block, in the
+    kernels' arithmetic: (hit (P, BS), the ball test of skip 1; g2 (P, BS,
+    nr), the squared gap between each sub-chunk's box and each tile's box,
+    both ball-local, for skip 2 and the seed pass)."""
+    lo, hi = sub_lo[subs][:, None], sub_hi[subs][:, None]  # (P, 1, dim)
+    hit = _sqsum(torch.minimum(torch.maximum(c, lo), hi) - c) <= r2
+    gap = torch.clamp(
+        torch.maximum((lo - c)[:, :, None] - thi,
+                      tlo - (hi - c)[:, :, None]),
+        min=0.0,
+    )
+    return hit, _sqsum(gap)
+
+
 def flood_pairs_reference(samples, witnesses, sub_lo, sub_hi, centers,
                           radii, tile_lo, tile_hi, ub2, blk_ptr, blk_chunks):
-    """The plain PyTorch version of K1: the same work-list walk, the same
-    two admission tests, the same 3e18 mask and arithmetic, vectorized over
-    the simplices and tiles of a block.
+    """The plain PyTorch version of K1: the same work-list walk in the same
+    two passes, the same two admission tests, the same 3e18 mask and
+    arithmetic, vectorized over the simplices and tiles of a block.
 
-    Returns (out (S, nr, rt) min d^2, stats (n_blk * nr, 2) int64 with
-    admitted (simplex, sub-chunk) units and in-ball pairs per tile).
+    Each (simplex, tile) walks its block's list twice, nearest first: the
+    seed pass admits the sub-chunks that pass the ball test and whose box
+    meets the tile's (squared gap 0), the second pass those that pass it at
+    a gap above 0 and within ``min(pm, ub2)`` (skip 2: ``pm`` the tile's
+    largest running min, ``ub2`` its static bound).
+
+    Returns (out (S, nr, rt) min d^2, stats (n_blk * nr, 3) int64 with
+    admitted (simplex, sub-chunk) units, in-ball pairs, and the in-ball
+    pairs of the seed pass per tile).
     """
     s_total, nr, rt, dim = samples.shape
     n_blk = s_total // BS
     spc = WCHUNK // SUB
     dev = samples.device
     out = torch.full((s_total, nr, rt), float("inf"), device=dev)
-    stats = torch.zeros((n_blk, nr, 2), dtype=torch.int64, device=dev)
+    stats = torch.zeros((n_blk, nr, 3), dtype=torch.int64, device=dev)
     ptr = blk_ptr.tolist()
-    chunks = blk_chunks.tolist()
+    # positions whose tests are held at once: at most about 2**20 gaps
+    group = max(1, (1 << 20) // (BS * nr * dim))
     for b in range(n_blk):
         sl = slice(b * BS, (b + 1) * BS)
         x, c, rad = samples[sl], centers[sl], radii[sl]
         r2 = rad * rad
         tlo, thi, ub = tile_lo[sl], tile_hi[sl], ub2[sl]
         acc = out[sl]  # a view: updates land in ``out``
-        for p in range(ptr[b], ptr[b + 1]):
-            for q in range(spc):
-                sub = chunks[p] * spc + q
-                lo, hi = sub_lo[sub], sub_hi[sub]
-                near = torch.minimum(torch.maximum(c, lo), hi) - c
-                hit = _sqsum(near) <= r2  # (BS,)
-                if not bool(hit.any()):
-                    continue
-                gap = torch.clamp(
-                    torch.maximum(
-                        (lo - c)[:, None, :] - thi, tlo - (hi - c)[:, None, :]
-                    ),
-                    min=0.0,
-                )
-                bound = torch.minimum(acc.amax(-1), ub)  # (BS, nr)
-                ok = hit[:, None] & (_sqsum(gap) <= bound)
-                if not bool(ok.any()):
-                    continue
-                yl = witnesses[sub * SUB : (sub + 1) * SUB][None] - c[:, None]
-                inb = _sqsum(yl) <= r2[:, None]  # (BS, SUB)
-                ym = torch.where(inb[..., None], yl, torch.full_like(yl, MASK))
-                si, ri = ok.nonzero(as_tuple=True)
-                xs, ys = x[si, ri], ym[si]  # (U, rt, dim), (U, SUB, dim)
-                d2 = None
-                for d in range(dim):
-                    diff = ys[:, None, :, d] - xs[:, :, None, d]
-                    d2 = diff * diff if d2 is None else d2 + diff * diff
-                acc[si, ri] = torch.minimum(acc[si, ri], d2.amin(-1))
-                okl = ok.long()
-                stats[b, :, 0] += okl.sum(0)
-                stats[b, :, 1] += (okl * inb.sum(1)[:, None]).sum(0) * rt
-    return out, stats.reshape(n_blk * nr, 2)
+        subs = (blk_chunks[ptr[b]:ptr[b + 1]].long()[:, None] * spc
+                + torch.arange(spc, device=dev)).reshape(-1)
+        for seed in (True, False):
+            for g0 in range(0, subs.numel(), group):
+                part = subs[g0:g0 + group]
+                hit, g2 = _walk_tests(sub_lo, sub_hi, part, c, r2, tlo, thi)
+                # the pass's sub-chunks, less those the bound already skips
+                # (it only falls)
+                want = hit[..., None] & ((g2 == 0) if seed else (g2 > 0))
+                want &= g2 <= torch.minimum(acc.amax(-1), ub)
+                for j in want.any(2).any(1).nonzero()[:, 0].tolist():
+                    bound = torch.minimum(acc.amax(-1), ub)  # (BS, nr)
+                    ok = want[j] & (g2[j] <= bound)
+                    if not bool(ok.any()):
+                        continue
+                    sub = int(part[j])
+                    yl = (witnesses[sub * SUB : (sub + 1) * SUB][None]
+                          - c[:, None])
+                    inb = _sqsum(yl) <= r2[:, None]  # (BS, SUB)
+                    ym = torch.where(inb[..., None], yl,
+                                     torch.full_like(yl, MASK))
+                    si, ri = ok.nonzero(as_tuple=True)
+                    xs, ys = x[si, ri], ym[si]  # (U, rt, dim), (U, SUB, dim)
+                    d2 = None
+                    for d in range(dim):
+                        diff = ys[:, None, :, d] - xs[:, :, None, d]
+                        d2 = diff * diff if d2 is None else d2 + diff * diff
+                    acc[si, ri] = torch.minimum(acc[si, ri], d2.amin(-1))
+                    okl = ok.long()
+                    pairs = (okl * inb.sum(1)[:, None]).sum(0) * rt
+                    stats[b, :, 0] += okl.sum(0)
+                    stats[b, :, 1] += pairs
+                    if seed:
+                        stats[b, :, 2] += pairs
+    return out, stats.reshape(n_blk * nr, 3)
 
 
 def _check_flood_operands(operands, what: str):
@@ -559,7 +591,9 @@ def flood_min(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
     larger tiles at 1-8 coordinates raise ValueError. While tracing it
     counts the sample slots it runs (``k1_samples``) and those in tiles of
     FEW_RT, each admitting work for itself (``k1_patch_samples``; every
-    slot at 1-8 coordinates). Returns (out (S, nr, rt), stats).
+    slot at 1-8 coordinates), and keeps the in-ball pairs of ``stats``
+    (``k1_inball_pairs``) and of its seed pass (``k1_seed_pairs``).
+    Returns (out (S, nr, rt), stats (n_blk * nr, 3)).
     """
     operands = (samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
                 tile_hi, ub2, blk_ptr, blk_chunks)
@@ -574,6 +608,7 @@ def flood_min(samples, witnesses, sub_lo, sub_hi, centers, radii, tile_lo,
         out, stats = _launch(operands, k1_instance(rt, dim).startswith(
             "flood_min_few"))
     stagetimer.keep("k1_inball_pairs", stats, column=1)
+    stagetimer.keep("k1_seed_pairs", stats, column=2)
     return out, stats
 
 
@@ -588,7 +623,7 @@ def _launch(operands, few: bool):
     cta_order = _cta_order(operands[9])
     out = torch.empty((s_total, nr, rt), dtype=torch.float32,
                       device=samples.device)
-    stats = torch.empty((n_blk * nr, 2), dtype=torch.int64,
+    stats = torch.empty((n_blk * nr, 3), dtype=torch.int64,
                         device=samples.device)
     launched = ctypes.c_longlong(0)
     kernel_ops = (kernel_samples(samples),) + operands[1:]

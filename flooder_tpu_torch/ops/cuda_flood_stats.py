@@ -13,8 +13,10 @@ A unit is admitted when the sub-chunk's box meets the simplex's ball
 simplex's bound, the max of its running mins over all of its samples, taken
 once at the start of each pair. Inside an admitted unit a tile is computed
 when its gap is within ``min(tile's current max, ub2)``: K1's own tile
-test, so K3 computes the same tiles as K1, its values equal K1's bit for
-bit and its column 2 sums to K1's admitted units.
+test, in one pass over the list. K1 walks each list twice, its seed pass
+first, and admits a subset of these tiles (``csrc/flood.cu``): K3's values
+equal K1's bit for bit, and in every block its column 2 is no less than
+K1's admitted units.
 
 It takes exactly the operand tuple of ``CudaFloodEngine.prepare``, at any
 width (template instances for 1-8 coordinates, K1's runtime-width forms
@@ -29,7 +31,7 @@ run the simplices of the longest work-lists first (``_simplex_order``),
 and the tile groups of a CTA share each staged sub-chunk (two at tiles of
 512 samples, up to eight of a warp at the engine's tiles of 128). Like K1
 it is bound by fp32 instruction issue: 7 instructions per in-ball (sample,
-witness) pair of the computed tiles, K1's own pairs in K1's inner loop. On
+witness) pair of the computed tiles, in K1's inner loop. On
 an NVIDIA H100 80GB HBM3 at 700 W it takes 35.7 ms on the 1M x 1k main
 path's dimension-3 operands, against a 22.2 ms issue floor and a 14.3 ms
 operations bound, and 1.21x K1's time (PERF.md).

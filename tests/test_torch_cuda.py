@@ -158,6 +158,37 @@ def test_flood_kernel_matches_plain(cuda_device, tight, num_rand):
     assert stats_k[:, 0].sum().item() > 0
 
 
+@pytest.mark.parametrize("num_rand", [None, 20000])
+def test_seed_pass_counts_match_plain_on_a_cheese_scene(cuda_device,
+                                                        num_rand):
+    """K1's two passes on a seeded cheese scene, the grid of 4,960 samples a
+    tetrahedron (39 patches of 128) and 20,000 random samples: all three
+    columns of its stats (units, in-ball pairs, the seed pass's pairs)
+    equal the plain version's, d^2 within 1e-6 of it, and its output equal
+    bit for bit to K3's, the walk in one pass, whose computed tiles bound
+    K1's units in every block."""
+    from flooder_tpu_torch.tools.scene import build_scene
+
+    sc = build_scene(20000, 40, seed=11)
+    w = sc.weights
+    if num_rand is not None:
+        np.random.seed(11)
+        w = ft.generate_uniform_weights(num_rand, 3, device="cpu")
+    ops = sc.engine.prepare(sc.sim_verts, w, sc.centers, sc.radii, True)[0]
+    assert ops[0].shape[1:3] == (-(-len(w) // cuda_flood.FEW_RT),
+                                 cuda_flood.FEW_RT)
+    out_k, stats_k = cuda_flood.flood_min(*ops)
+    out_p, stats_p = cuda_flood.flood_pairs_reference(*ops)
+    masked = out_p >= cuda_flood._MASKED_D2
+    assert torch.equal(out_k >= cuda_flood._MASKED_D2, masked)
+    assert (out_k[~masked] - out_p[~masked]).abs().max().item() <= 1e-6
+    assert stats_k.shape[1] == 3 and torch.equal(stats_k, stats_p)
+    assert 0 < stats_k[:, 2].sum().item() <= stats_k[:, 1].sum().item()
+    out_3, stats_3 = cuda_flood_stats.flood_min_stats(*ops)
+    assert torch.equal(out_3, out_k)
+    assert_k1_within_k3(stats_3, stats_k)
+
+
 def test_flood_kernel_matches_plain_where_balls_cut_subchunks(cuda_device):
     """Landmarks off the cloud, balls of half the radius (as in
     test_torch_flood.py::test_plain_kernel_matches_pallas_interpret): many
@@ -177,7 +208,7 @@ def test_flood_kernel_matches_plain_where_balls_cut_subchunks(cuda_device):
     assert 0 < inball < units * cuda_flood.SUB * rt  # partly masked units
     out_3, stats_3 = cuda_flood_stats.flood_min_stats(*ops)
     assert torch.equal(out_3, out_k)
-    assert stats_3[:, cuda_flood_stats.COL_TILES].sum().item() == units
+    assert_k1_within_k3(stats_3, stats_k)
 
 
 # K3's cases beyond the Delaunay scenes, as k3_case_operands arguments; CPU
@@ -269,12 +300,24 @@ def k3_paths_reached(out, stats):
     return fold, rejected
 
 
+def assert_k1_within_k3(stats_3, stats_1):
+    """K1's admitted units are no more than K3's computed tiles in every
+    block: K3 computes the tiles of the walk in one pass, and K1's two
+    passes (its seed pass first) admit a subset of them."""
+    tiles = stats_3[:, cuda_flood_stats.COL_TILES].reshape(
+        -1, cuda_flood.BS).sum(1)
+    units = stats_1[:, 0].reshape(tiles.numel(), -1).sum(1)
+    assert bool((units <= tiles).all())
+    assert int(units.sum()) > 0
+
+
 def assert_k3_matches_plain(ops):
     """K3, launched once through its wrapper, against its plain version
     (d^2 within 1e-6, inf alike, every counter equal) and against K1 (equal
-    output, computed tiles == K1's units); on tiles that no K1 instance
-    takes (more than 128 samples at 1-8 coordinates), against K1's plain
-    version (d^2 within 1e-6, computed tiles == its units)."""
+    output, K1's units no more than K3's computed tiles in every block); on
+    tiles that no K1 instance takes (more than 128 samples at 1-8
+    coordinates), against K1's plain version (d^2 within 1e-6, its units no
+    more than K3's tiles in every block)."""
     before = cuda_flood_stats.LAUNCHES
     out_k, stats_k = cuda_flood_stats.flood_min_stats(*ops)
     torch.cuda.synchronize()
@@ -295,9 +338,7 @@ def assert_k3_matches_plain(ops):
     else:
         out_1, stats_1 = cuda_flood.flood_min(*ops)
         assert torch.equal(out_k, out_1)
-    assert stats_k[:, cuda_flood_stats.COL_TILES].sum().item() == (
-        cuda_flood.kernel_operations(stats_1)[0]
-    )
+    assert_k1_within_k3(stats_k, stats_1)
     return out_p, stats_p
 
 
@@ -508,8 +549,8 @@ def test_flood_kernel_few_samples_past_8_coordinates(cuda_device, dim,
     one to three tiles a simplex) in one few-sample launch: against the
     plain version (the bar of assert_within_wide_bar, inf in place, +inf
     from 38 coordinates on, every count equal) and against K3's
-    runtime-width instance (bit for bit, its computed tiles equal to K1's
-    units)."""
+    runtime-width instance (bit for bit, K1's units no more than its
+    computed tiles in every block)."""
     ops = k3_case_operands(cuda_device, dim=dim, r_count=r_count)
     assert ops[0].shape[1:3] == (-(-r_count // cuda_flood.FEW_RT),
                                  cuda_flood.FEW_RT)
@@ -532,7 +573,7 @@ def test_flood_kernel_few_samples_past_8_coordinates(cuda_device, dim,
     assert units > 0
     out_3, stats_3 = cuda_flood_stats.flood_min_stats(*ops)
     assert torch.equal(out_3, out_k)
-    assert stats_3[:, cuda_flood_stats.COL_TILES].sum().item() == units
+    assert_k1_within_k3(stats_3, stats_k)
 
 
 def test_landmarks_on_another_device_are_refused_on_card(cuda_device):
@@ -569,9 +610,10 @@ def test_flood_kernels_past_8_coordinates_equal_plain(cuda_device, dim):
     """K1's and K3's runtime-width instances against their plain versions:
     d2 within the bar of assert_within_wide_bar (they sum with one FMA a
     coordinate), inf in the same places (a masked d2 overflows to +inf from
-    38 coordinates on, on both sides), every count equal, K3 == K1 bit for
-    bit, in one launch each. 16 coordinates is the widest single slab, 37
-    the widest finite masked d2."""
+    38 coordinates on, on both sides), every count equal, K3's output K1's
+    bit for bit and K1's units no more than K3's tiles, in one launch each.
+    16 coordinates is the widest single slab, 37 the widest finite masked
+    d2."""
     ops = k3_case_operands(cuda_device, dim=dim, r_count=1100)
     assert ops[0].shape[1] == 3
     before = cuda_flood.LAUNCHES
@@ -596,7 +638,7 @@ def test_flood_kernels_past_8_coordinates_equal_plain(cuda_device, dim):
     assert_within_wide_bar(out_3, out_3p, dim)
     assert torch.equal(out_3, out_k)
     assert torch.equal(stats_3, stats_3p)
-    assert stats_3[:, cuda_flood_stats.COL_TILES].sum().item() == units
+    assert_k1_within_k3(stats_3, stats_k)
 
 
 def test_12d_cloud_through_k2_and_k1(cuda_device):
@@ -643,7 +685,7 @@ def test_kernel_stats_tool_on_card(cuda_device):
     assert parity
     assert cuda_flood_stats.LAUNCHES == before + 2  # warm-up + timed run
     assert counters["visited_pairs"] == counters["worklist_pairs"] > 0
-    assert counters["computed_tiles"] == counters["production_units"] > 0
+    assert counters["computed_tiles"] >= counters["production_units"] > 0
     assert seg_times[0] > 0
 
 

@@ -230,6 +230,104 @@ def test_plain_kernel_matches_pallas_interpret(tight):
     assert units > 0 and pairs > 0
 
 
+def _one_pass_walk(ops):
+    """The walk K3 takes (``csrc/flood_stats.cu``, K1's tile test in one
+    pass over each block's list), counted as K1 counts: per block, its
+    admitted (simplex, tile, sub-chunk) units and their in-ball pairs."""
+    samples, witnesses, sub_lo, sub_hi, centers, radii, tlo, thi, ub2 = \
+        ops[:9]
+    ptr, chunks = ops[9].tolist(), ops[10].tolist()
+    s_total, nr, rt, dim = samples.shape
+    spc = cf.WCHUNK // cf.SUB
+    acc = torch.full((s_total, nr, rt), float("inf"))
+    units, pairs = [], []
+    for b in range(s_total // cf.BS):
+        sl = slice(b * cf.BS, (b + 1) * cf.BS)
+        c, r2, a = centers[sl], radii[sl] * radii[sl], acc[sl]
+        u = p = 0
+        subs = [ch * spc + q for ch in chunks[ptr[b]:ptr[b + 1]]
+                for q in range(spc)]
+        hit, g2 = cf._walk_tests(sub_lo, sub_hi, torch.tensor(subs), c, r2,
+                                 tlo[sl], thi[sl])
+        for j, sub in enumerate(subs):
+            ok = hit[j][:, None] & (g2[j] <= torch.minimum(a.amax(-1),
+                                                           ub2[sl]))
+            if not bool(ok.any()):
+                continue
+            yl = witnesses[sub * cf.SUB:(sub + 1) * cf.SUB][None] - c[:, None]
+            inb = cf._sqsum(yl) <= r2[:, None]
+            ym = torch.where(inb[..., None], yl, torch.full_like(yl, cf.MASK))
+            si, ri = ok.nonzero(as_tuple=True)
+            d2 = cf._sqsum(ym[si][:, None] - samples[sl][si, ri][:, :, None])
+            a[si, ri] = torch.minimum(a[si, ri], d2.amin(-1))
+            u += int(ok.sum())
+            p += int((ok.long() * inb.sum(1)[:, None]).sum()) * rt
+        units.append(u)
+        pairs.append(p)
+    return torch.tensor(units), torch.tensor(pairs)
+
+
+def _scene_pass(cloud, mode, tight):
+    """K1's operands of a scene's top pass: the grid of ``build_scene``
+    (30 points per edge, in 128-sample patches) or 300 random samples a
+    simplex, with the nearest-vertex bound on or off."""
+    from flooder_tpu_torch.core import generate_uniform_weights
+    from flooder_tpu_torch.tools.scene import build_scene
+
+    sc = build_scene(1000, 24, cloud=cloud, device="cpu")
+    w = sc.weights
+    if mode == "random":
+        np.random.seed(7)
+        w = generate_uniform_weights(300, sc.dim, device="cpu")
+    return sc.engine.prepare(sc.sim_verts, w, sc.centers, sc.radii,
+                             tight)[0]
+
+
+@pytest.mark.parametrize("tight", [True, False])
+@pytest.mark.parametrize("mode", ["grid", "random"])
+@pytest.mark.parametrize("cloud", ["cheese3d", "eight2d"])
+def test_seed_pass_admits_a_subset_of_the_one_pass_walk(one_thread, cloud,
+                                                        mode, tight):
+    """K1's plain version walks each list twice, its seed pass first: its
+    values equal K3's plain version's (the walk in one pass) bit for bit;
+    block by block its admitted units and in-ball pairs are no more than
+    K3's computed tiles and their pairs, and fewer on the cheese; the seed
+    pass's pairs (column 2) are part of the pairs, above 0 where a tile's
+    box meets a sub-chunk that passes the ball test."""
+    from flooder_tpu_torch.ops import cuda_flood_stats as cfs
+
+    ops = _scene_pass(cloud, mode, tight)
+    nr = ops[0].shape[1]
+    out, stats = cf.flood_pairs_reference(*ops)
+    out3, st3 = cfs.flood_stats_reference(*ops)
+    assert torch.equal(out, out3)
+    one_units, one_pairs = _one_pass_walk(ops)
+    tiles = st3[:, cfs.COL_TILES].reshape(-1, cf.BS).sum(1)
+    assert torch.equal(one_units, tiles)
+    per_blk = stats.reshape(-1, nr, 3).sum(1)
+    assert (per_blk[:, 0] <= tiles).all()
+    assert (per_blk[:, 1] <= one_pairs).all()
+    if cloud == "cheese3d":
+        assert per_blk[:, 0].sum() < tiles.sum()
+        assert per_blk[:, 1].sum() < one_pairs.sum()
+    assert (stats[:, 2] <= stats[:, 1]).all()
+    # a tile whose box meets a sub-chunk in its ball has a seed pass
+    samples, _, sub_lo, sub_hi, centers, radii, tlo, thi = ops[:8]
+    ptr, chunks = ops[9].tolist(), ops[10]
+    spc = cf.WCHUNK // cf.SUB
+    met = torch.zeros(stats.shape[0] // nr, nr, dtype=torch.bool)
+    for b in range(met.shape[0]):
+        sl = slice(b * cf.BS, (b + 1) * cf.BS)
+        subs = (chunks[ptr[b]:ptr[b + 1]].long()[:, None] * spc
+                + torch.arange(spc)).reshape(-1)
+        hit, g2 = cf._walk_tests(sub_lo, sub_hi, subs, centers[sl],
+                                 radii[sl] * radii[sl], tlo[sl], thi[sl])
+        met[b] = (hit[..., None] & (g2 == 0)).any(1).any(0)
+    assert met.any()
+    assert (stats[:, 2].reshape(-1, nr)[met] > 0).float().mean() > 0.5
+    assert int(stats[:, 2].sum()) > 0
+
+
 @pytest.fixture
 def one_thread():
     """K1's plain version is a loop of small torch ops: on one thread it

@@ -111,8 +111,10 @@ def test_plain_k3_matches_pallas_k3_interpret(tight, r_count):
 
 @pytest.mark.parametrize("tight", [True, False])
 def test_k3_equals_k1_on_port_operands(tight):
-    """K3 computes exactly K1's tiles: bit-equal output, and its computed
-    tiles are K1's admitted (simplex, tile, sub-chunk) units."""
+    """K3 computes the tiles of the walk in one pass, K1 walks each list
+    twice (its seed pass first) and admits a subset of them: bit-equal
+    output, and in every block K1's admitted (simplex, tile, sub-chunk)
+    units are no more than K3's computed tiles."""
     eng, ws, vl, centers, radii, nr, rt = _prep_inputs(r_count=600)
     samples, tlo, thi, ub2, active, dist = cf._prep(
         torch.from_numpy(vl), torch.from_numpy(ws.copy()),
@@ -125,8 +127,10 @@ def test_k3_equals_k1_on_port_operands(tight):
     out3, st3 = cfs.flood_min_stats(*ops)
     out1, st1 = cf.flood_pairs_reference(*ops)
     assert torch.equal(out3, out1)
-    tiles = int(st3[:, cfs.COL_TILES].sum())
-    assert tiles == cf.kernel_operations(st1)[0] > 0
+    tiles = st3[:, cfs.COL_TILES].reshape(-1, cf.BS).sum(1)
+    units = st1[:, 0].reshape(tiles.numel(), nr).sum(1)
+    assert (units <= tiles).all()
+    assert int(tiles.sum()) >= cf.kernel_operations(st1)[0] > 0
     assert int(st3[:: cf.BS, cfs.COL_PAIRS].sum()) == ops[-1].numel()
 
 
@@ -139,7 +143,7 @@ def test_tool_end_to_end_on_cpu(cloud, dim):
     assert len(seg_times) == 1
     assert counters["visited_pairs"] == counters["worklist_pairs"] > 0
     assert counters["admitted_subchunks"] > 0
-    assert counters["computed_tiles"] == counters["production_units"] > 0
+    assert counters["computed_tiles"] >= counters["production_units"] > 0
 
 
 def test_block_slice_gives_the_blocks_rows():

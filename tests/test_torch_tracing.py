@@ -147,11 +147,13 @@ def test_the_record_counts_the_witnesses_and_the_cache_hits():
                      "witnesses_padded": cf.witness_total(700),
                      "k1_inball_pairs": first["k1_inball_pairs"],
                      "k1_inball_pairs_d3": first["k1_inball_pairs"],
+                     "k1_seed_pairs": first["k1_seed_pairs"],
                      "k1_samples": first["k1_samples"],
                      "k1_patch_samples": first["k1_samples"],
                      "k1_chunks_admitted": first["k1_chunks_admitted"],
                      "k1_chunks_admitted_padded": first["k1_chunks_admitted"]}
     assert cf.witness_total(700) == 2048 and first["k1_inball_pairs"] > 0
+    assert 0 < first["k1_seed_pairs"] <= first["k1_inball_pairs"]
     assert first["k1_samples"] > 0 and first["k1_chunks_admitted"] > 0
     assert again["engine_cache_hit"] == 1 and "witnesses_real" not in again
     assert "engine_cache_hit" not in new and new["witnesses_real"] == 700
@@ -193,7 +195,8 @@ def test_k1_device_counters_are_its_stats_and_kept_only_while_tracing():
         engine.min_distances(sv, w, c, r, tight=True)
         engine.min_distances(sv, w, c, r, tight=True)
     _, pairs = cf.kernel_operations(engine.last_stats)
-    assert pairs > 0
+    seed = int(engine.last_stats[:, 2].sum())
+    assert 0 < seed <= pairs
     ops = engine.prepare(sv, w, c, r, True)[0]
     slots = ops[0].shape[:3].numel()
     # one chunk of 2,048 witnesses, which holds padding rows
@@ -201,6 +204,7 @@ def test_k1_device_counters_are_its_stats_and_kept_only_while_tracing():
     assert engine.padded_chunks.tolist() == [True] and entries > 0
     assert stagetimer.counters() == {"k1_inball_pairs": 2 * pairs,
                                      "k1_inball_pairs_d3": 2 * pairs,
+                                     "k1_seed_pairs": 2 * seed,
                                      "k1_samples": 2 * slots,
                                      "k1_patch_samples": 2 * slots,
                                      "k1_chunks_admitted": 2 * entries,
@@ -275,6 +279,33 @@ def test_the_benchmark_reads_the_padded_share_of_admission(monkeypatch):
     with _profiled():
         stagetimer.new_record()
         stagetimer.count("witnesses_real", 5)
+    assert reader.read({"n_profiled": 1}) is None
+
+
+def test_the_benchmark_reads_the_seed_share_of_pairs(monkeypatch):
+    """``flood_bench/metrics/k1_seed_pair_pct.py`` over a profiled call:
+    100 x K1's in-ball pairs of its seed pass over all its in-ball pairs;
+    nothing for a program that keeps the pairs but not the seed pass's."""
+    import importlib.util
+    from pathlib import Path
+
+    bench = Path(__file__).resolve().parents[1] / "flood_bench"
+    monkeypatch.syspath_prepend(str(bench))
+    spec = importlib.util.spec_from_file_location(
+        "k1_seed_pair_pct", bench / "metrics" / "k1_seed_pair_pct.py")
+    reader = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(reader)
+    stagetimer.reset_counters()
+    with _profiled():
+        _call(_cloud(8, 5000))
+    got = stagetimer.counters()
+    assert 0 < got["k1_seed_pairs"] <= got["k1_inball_pairs"]
+    assert reader.read({"n_profiled": 1}) == pytest.approx(
+        100.0 * got["k1_seed_pairs"] / got["k1_inball_pairs"])
+    stagetimer.reset_counters()
+    with _profiled():
+        stagetimer.new_record()
+        stagetimer.count("k1_inball_pairs", 5)
     assert reader.read({"n_profiled": 1}) is None
 
 
